@@ -1,0 +1,15 @@
+"""Petascale XCT reconstruction on one NVIDIA Hopper GPU, in PyTorch.
+
+The PyTorch/CUDA port of :mod:`repro`, module for module:
+
+  core     -- geometry, Hilbert ordering, partitioning, precision,
+              pipeline, CGNR solver, ``Reconstructor``
+  kernels  -- the hand-written blocked-ELL SpMM kernel (``csrc/``), its
+              plain PyTorch version and the dispatching ``apply_operator``
+  data     -- phantoms and measurement simulation
+  launch   -- the reconstruction CLI
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

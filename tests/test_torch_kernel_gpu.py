@@ -1,0 +1,146 @@
+"""The CUDA kernel against its plain PyTorch version, on the card.
+
+Every test here carries the ``gpu`` marker and skips where no CUDA
+device is present.  The file imports no JAX, so it runs on the GPU
+machine as it is:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
+"""
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import xct_spmm as txs
+
+SWEEP = [
+    # (B, S, R, K, BUF, C, F): tests/test_kernel_spmm.py's sweep
+    (1, 1, 8, 8, 16, 64, 1),
+    (2, 2, 16, 8, 32, 128, 4),
+    (3, 1, 32, 16, 64, 256, 8),
+    (2, 3, 8, 32, 40, 96, 16),
+    (5, 2, 16, 16, 24, 64, 2),
+]
+TORCH = {"f64": torch.float64, "f32": torch.float32, "f16": torch.float16,
+         "bf16": torch.bfloat16}
+
+
+def _seed(*parts) -> int:
+    return zlib.crc32(repr(parts).encode())
+
+
+def _random_ell(rng, b, s, r, k, buf, c, f):
+    inds = rng.integers(0, buf, size=(b, s, r, k)).astype(np.int16)
+    vals = (rng.random((b, s, r, k)) * (rng.random((b, s, r, k)) > 0.3)
+            ).astype(np.float32)
+    winmap = rng.integers(0, c, size=(b, s, buf)).astype(np.int32)
+    x = rng.normal(size=(c, f)).astype(np.float32)
+    return inds, vals, winmap, x
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the GPU machine")
+    return torch.device("cuda")
+
+
+def _cuda_inputs(shape, storage, dev, seed):
+    b, s, r, k, buf, c, f = shape
+    rng = np.random.default_rng(seed)
+    inds, vals, winmap, x = _random_ell(rng, b, s, r, k, buf, c, f)
+    segs, off = tops.sort_segments_by_class(
+        tops.winmap_segments(winmap), buf
+    )
+    st = TORCH[storage]
+    return [
+        torch.from_numpy(inds).to(dev),
+        torch.from_numpy(vals).to(dev, st),
+        torch.from_numpy(winmap).to(dev),
+        torch.from_numpy(x).to(dev, st),
+        torch.from_numpy(segs).to(dev),
+        torch.from_numpy(off).to(dev),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize(
+    "pair", [("f64", "f64"), ("f32", "f32"), ("f16", "f16"),
+             ("f16", "f32"), ("bf16", "bf16"), ("bf16", "f32")],
+)
+def test_cuda_kernel_matches_plain(cuda, shape, pair):
+    storage, compute = pair
+    inds, vals, winmap, x, segs, off = _cuda_inputs(
+        shape, storage, cuda, _seed("cuda", shape, pair)
+    )
+    before = txs.spmm_block_ell.launches
+    out = txs.spmm_block_ell(
+        inds, vals, winmap, x, compute_dtype=TORCH[compute],
+        winsegs=segs, segoff=off,
+    )
+    torch.cuda.synchronize()
+    assert txs.spmm_block_ell.launches == before + 1
+    plain = txs.spmm_block_ell_plain(
+        inds, vals, winmap, x, compute_dtype=TORCH[compute]
+    )
+    tol = 1e-5 if storage in ("f32", "f64") else 2e-2
+    torch.testing.assert_close(out, plain, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_checks(cuda):
+    inds, vals, winmap, x, segs, off = _cuda_inputs(
+        SWEEP[1], "f32", cuda, 0
+    )
+    with pytest.raises(ValueError, match="winsegs"):
+        txs.spmm_block_ell(inds, vals, winmap, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        txs.spmm_block_ell(inds, vals, winmap, x,
+                           compute_dtype=torch.float16,
+                           winsegs=segs, segoff=off)
+    with pytest.raises(ValueError, match="contiguous"):
+        txs.spmm_block_ell(inds, vals, winmap, x.t().contiguous().t(),
+                           winsegs=segs, segoff=off)
+    # a window too large for one CTA names BUF and F
+    big = torch.zeros((1, 1, 4000), dtype=torch.int32, device=cuda)
+    bsegs, boff = (
+        torch.from_numpy(t).to(cuda) for t in tops.sort_segments_by_class(
+            tops.winmap_segments(np.arange(4000, dtype=np.int32)[None, None]),
+            4000,
+        )
+    )
+    xb = torch.zeros((4000, 16), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="BUF=4000, F=16"):
+        txs.spmm_block_ell(inds[:1, :1], vals[:1, :1], big, xb,
+                           winsegs=bsegs, segoff=boff)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["single", "mixed", "double"])
+def test_cuda_reconstructor_matches_cpu(cuda, precision):
+    """The whole solve on the card goes through the kernel and agrees
+    with the same solve on the CPU (plain version)."""
+    from repro_torch.core.geometry import XCTGeometry, build_system_matrix
+    from repro_torch.core.partition import PartitionConfig, build_plan
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.data.phantom import phantom_slices
+
+    geo = XCTGeometry(n=32, n_angles=48)
+    a = build_system_matrix(geo)
+    plan = build_plan(geo, PartitionConfig(tile=4, rows_per_block=16,
+                                           nnz_per_stage=16), a=a)
+    x_true = phantom_slices(32, 4)
+    y = (a @ x_true).astype(np.float32)
+    cfg = ReconConfig(precision=precision, comm_mode="rs", fuse=2)
+    before = txs.spmm_block_ell.launches
+    xg, rg = Reconstructor(plan, cfg=cfg).reconstruct(y, iters=5)
+    assert txs.spmm_block_ell.launches - before == 2 * (5 + 1) * 2
+    xc, rc = Reconstructor(plan, cfg=cfg, device="cpu").reconstruct(
+        y, iters=5
+    )
+    tol = 1e-4 if precision != "mixed" else 5e-3
+    np.testing.assert_allclose(xg, xc, rtol=tol, atol=tol * np.abs(xc).max())
+    np.testing.assert_allclose(rg, rc, rtol=tol, atol=tol * np.abs(rc).max())

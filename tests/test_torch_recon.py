@@ -1,0 +1,198 @@
+"""End-to-end reconstruction with the PyTorch port on the CPU: the five
+system tests of ``test_recon_system.py`` with their tolerances, the port
+against the JAX ``Reconstructor`` on the same plan, and the CLI."""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.recon import ReconConfig as JaxConfig
+from repro.core.recon import Reconstructor as JaxReconstructor
+from repro_torch.core import geometry as tgeo
+from repro_torch.core import partition as tpart
+from repro_torch.core.recon import ReconConfig, Reconstructor
+from repro_torch.resil.errors import NonFiniteSolveError
+
+
+@pytest.fixture(scope="module")
+def port_plan(small_system):
+    """The fixture's reference plan, carried into the port."""
+    geo, _, plan = small_system
+    return tpart.plan_from_arrays(
+        tpart.plan_to_arrays(plan),
+        tgeo.XCTGeometry(geo.n, geo.n_angles),
+        tpart.PartitionConfig(tile=4, rows_per_block=16, nnz_per_stage=16),
+    )
+
+
+def _rec(plan, **kw):
+    kw.setdefault("comm_mode", "rs")
+    kw.setdefault("fuse", 2)
+    return Reconstructor(plan, cfg=ReconConfig(**kw), device="cpu")
+
+
+def _rel(x, x_true):
+    return np.linalg.norm(x - x_true, axis=0) / np.linalg.norm(x_true, axis=0)
+
+
+def test_project_backproject_match_scipy(small_system, phantom32, port_plan):
+    _, a, _ = small_system
+    x, y = phantom32
+    rec = _rec(port_plan, precision="single")
+    np.testing.assert_allclose(rec.project(x), a @ x, rtol=2e-4, atol=2e-4)
+    ref = a.T @ y
+    np.testing.assert_allclose(
+        rec.backproject(y), ref, rtol=2e-4, atol=2e-4 * np.abs(ref).max()
+    )
+
+
+def test_reconstruction_converges(phantom32, port_plan):
+    x_true, y = phantom32
+    x, res = _rec(port_plan, precision="single").reconstruct(y, iters=25)
+    assert _rel(x, x_true).mean() < 0.2
+    assert res[-1, 0] < 0.05 * res[0, 0]
+
+
+@pytest.mark.parametrize("precision", ["mixed", "half", "mixed_bf16"])
+def test_reduced_precision_tracks_single(phantom32, port_plan, precision):
+    x_true, y = phantom32
+    errs = {}
+    for prec in ("single", precision):
+        x, _ = _rec(port_plan, precision=prec).reconstruct(y, iters=15)
+        errs[prec] = _rel(x, x_true).mean()
+    assert errs[precision] < errs["single"] + 0.03
+
+
+def test_overlap_pipeline_matches_sync(phantom32, port_plan):
+    _, y = phantom32
+    outs = [
+        _rec(port_plan, precision="single", overlap=ov).reconstruct(
+            y, iters=5
+        )[0]
+        for ov in (False, True)
+    ]
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-5, atol=1e-6)
+
+
+def test_oracle_path_matches_kernel_path(phantom32, port_plan):
+    _, y = phantom32
+    outs = [
+        _rec(port_plan, precision="mixed", use_ref=ref).reconstruct(
+            y, iters=5
+        )[0]
+        for ref in (False, True)
+    ]
+    np.testing.assert_allclose(outs[0], outs[1], rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize(
+    "precision,tol",
+    [("single", 1e-4), ("double", 1e-4), ("mixed", 5e-3), ("half", 5e-3),
+     ("bf16", 5e-3), ("mixed_bf16", 5e-3)],
+)
+def test_port_matches_jax_reconstructor(small_system, phantom32, port_plan,
+                                        precision, tol):
+    """Same plan, same sinogram, 5 iterations.  ``double`` is true f64 in
+    the port and f32 in the JAX package (no x64): f32 tolerance."""
+    _, _, plan = small_system
+    _, y = phantom32
+    x, res = _rec(port_plan, precision=precision).reconstruct(y, iters=5)
+    jrec = JaxReconstructor(
+        plan, cfg=JaxConfig(precision=precision, comm_mode="rs", fuse=2)
+    )
+    jx, jres = jrec.reconstruct(y, iters=5)
+    jx = np.asarray(jx)
+    np.testing.assert_allclose(x, jx, rtol=tol,
+                               atol=tol * np.abs(jx).max())
+    np.testing.assert_allclose(res, np.asarray(jres), rtol=tol,
+                               atol=tol * np.abs(jres).max())
+
+
+def test_stage_sino_and_x0(phantom32, port_plan):
+    _, y = phantom32
+    rec = _rec(port_plan, precision="single")
+    staged = rec.stage_sino(y)
+    assert staged.y.device.type == "cpu" and staged.n_slices == 4
+    assert np.log2(staged.scale).round().tolist() == np.log2(
+        staged.scale
+    ).tolist()
+    x1, r1 = rec.reconstruct(staged, iters=3)
+    x2, r2 = rec.reconstruct(y, iters=3)
+    np.testing.assert_array_equal(x1, x2)
+    # a warm start at the solution keeps the residual at the start's
+    x3, r3 = rec.reconstruct(y, iters=2, x0_nat=x2)
+    assert r3[0, 0] <= r2[-1, 0] * 1.01
+
+
+def test_nonfinite_solve_raises(phantom32, port_plan):
+    _, y = phantom32
+    bad = y.copy()
+    bad[3, 1] = np.nan
+    with pytest.raises(NonFiniteSolveError):
+        _rec(port_plan, precision="single").reconstruct(bad, iters=2)
+
+
+def test_unported_configurations_raise(small_system, port_plan):
+    geo, a, _ = small_system
+    for kw in (dict(comm_mode="sparse"), dict(comm_mode="hier-sparse"),
+               dict(wire="q8"), dict(staging="gather"), dict(dma="per_row")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _rec(port_plan, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _rec(port_plan, precision="q8")
+    multi = tpart.build_plan(
+        tgeo.XCTGeometry(geo.n, geo.n_angles),
+        tpart.PartitionConfig(n_data=2, tile=4, rows_per_block=16,
+                              nnz_per_stage=16),
+        a=a,
+    )
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        _rec(multi)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        Reconstructor(port_plan, device="cpu", mesh=object())
+    for mode in ("direct", "rs", "hier"):
+        assert _rec(port_plan, comm_mode=mode).cfg.comm_mode == mode
+    with pytest.raises(ValueError, match="multiple"):
+        _rec(port_plan).project(np.zeros((geo.n_vox, 3), np.float32))
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(
+    port_plan, monkeypatch
+):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Reconstructor(port_plan)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Reconstructor(port_plan, device="cuda")
+    from repro_torch.launch import recon as cli
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--n", "16", "--angles", "8", "--slices", "4",
+                  "--iters", "1"])
+
+
+def test_cli_on_cpu(capsys):
+    from repro_torch.launch import recon as cli
+
+    x, res = cli.main(
+        ["--n", "32", "--angles", "48", "--slices", "4", "--iters", "5",
+         "--fuse", "2", "--precision", "single", "--device", "cpu"]
+    )
+    out = capsys.readouterr().out
+    assert "building system matrix (1536 rays x 1024 vox)" in out
+    assert "5 CG iters on 4 slices" in out and "rel err mean" in out
+    assert x.shape == (1024, 4) and res.shape == (5, 4)
+    assert res[-1, 0] < res[0, 0]
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [["--stream"], ["--trace", "t.json"], ["--tune-dir", "d"],
+     ["--p-data", "2"], ["--dma", "per_row"], ["--comm", "sparse"]],
+)
+def test_cli_rejects_unported_options(argv, capsys):
+    from repro_torch.launch import recon as cli
+
+    with pytest.raises(SystemExit) as ei:
+        cli.main(["--device", "cpu"] + argv)
+    assert ei.value.code == 2
+    assert "ROADMAP.md" in capsys.readouterr().err
