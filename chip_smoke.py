@@ -6,16 +6,24 @@
 Phases, each fatal on failure:
 
 1. the card (``nvidia-smi``) and the build of ``csrc/xct_spmm.cu``;
-2. the CUDA kernel against its plain PyTorch version, for every
-   (storage, compute) pair the float policies use, on the kernel test
-   sweep and on the n=512 projector and backprojector shards;
+2. every CUDA kernel against its plain PyTorch version, on the kernel
+   test sweep and on the n=512 projector and backprojector shards: the
+   class-sorted kernel (row 1) for every (storage, compute) pair the
+   float policies use; the unsorted-segment (row 2), per-row (row 3) and
+   pre-gathered window (row 4) kernels, which must also give row 1's
+   output bit for bit; and the quantized kernels (row 1q, int8 and fp8
+   values on the three fused stagings), which must equal their plain
+   version and row 1's f32 kernel on the dequantized values;
 3. the main path: ``Reconstructor`` at n=512, 384 angles, 32 slices,
-   ``fuse=16``, 30 CGNR iterations, under ``mixed`` and ``single``, with
-   the kernel's launch count read around each solve;
-4. a profiled mixed solve: device time by kernel and the idle share;
-5. per-application times of the kernel, its plain version and
+   ``fuse=16``, 30 CGNR iterations under ``mixed``, ``single``, ``q8``
+   and ``fp8``; 5-iteration ``mixed`` solves under ``dma="per_row"`` and
+   ``staging="gather"`` that must equal the default solve bit for bit;
+   one ``apply_operator`` per shard on unsorted segment tables; with
+   every kernel's launch count read around the phase;
+4. profiled mixed and q8 solves: device time by kernel and the idle share;
+5. per-application times of every kernel, its plain version and
    ``torch.sparse.mm`` (cuSPARSE, used here only as a yardstick) beside
-   the memory-bandwidth bound; the solve's wall time and peak memory.
+   the memory-bandwidth bound; the solves' wall time and peak memory.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -41,6 +49,16 @@ SWEEP = [  # (B, S, R, K, BUF, C, F): the kernel test sweep
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+AB_ITERS = 5  # iterations of the staging A/B solves
+# the five kernels: (key, name, replaces) -- the Pallas kernel body each
+# replaces in src/repro/kernels/xct_spmm.py
+KERNELS = (
+    ("row1", "spmm_block_ell", "src/repro/kernels/xct_spmm.py:249"),
+    ("row1q", "spmm_block_ell[scales]", "src/repro/kernels/xct_spmm.py:133"),
+    ("row2", "spmm_block_ell[unsorted]", "src/repro/kernels/xct_spmm.py:193"),
+    ("row3", "spmm_block_ell[per_row]", "src/repro/kernels/xct_spmm.py:141"),
+    ("row4", "spmm_block_ell_staged", "src/repro/kernels/xct_spmm.py:327"),
+)
 
 
 def log(*parts):
@@ -89,30 +107,108 @@ def random_shard(shape, storage, device, seed):
             t(segs), t(off))
 
 
+def unsorted_table(winmap, device):
+    """Row 2's input: the run-order segment table, without class offsets."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    return torch.from_numpy(
+        ops.winmap_segments(winmap.cpu().numpy())
+    ).to(device)
+
+
 def check_sweep(device):
-    """Phase 2a: every kernel pair on the sweep shapes."""
+    """Phase 2a: every kernel on the sweep shapes.  Returns
+    {kernel key: max abs error against its plain version}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import precision as prec
     from repro_torch.kernels import xct_spmm as xs
 
+    worst = dict.fromkeys((key for key, _, _ in KERNELS), 0.0)
     for storage, compute in xs.KERNEL_PAIRS:
-        worst = 0.0
+        errs = dict.fromkeys(("row1", "row2", "row3", "row4"), 0.0)
         for i, shape in enumerate(SWEEP):
             inds, vals, winmap, x, segs, off = random_shard(
                 shape, storage, device, seed=i
             )
-            out = xs.spmm_block_ell(inds, vals, winmap, x,
-                                    compute_dtype=compute,
-                                    winsegs=segs, segoff=off)
-            plain = xs.spmm_block_ell_plain(inds, vals, winmap, x,
-                                            compute_dtype=compute)
-            err, ok, tol = compare(out, plain, storage)
-            if not ok:
-                raise AssertionError(
-                    f"kernel {pair_name(storage, compute)} disagrees with "
-                    f"its plain version on {shape}: max err {err}"
+            unsorted = unsorted_table(winmap, device)
+            window = x[winmap.long()]
+            kw = dict(compute_dtype=compute)
+            outs = {
+                "row1": xs.spmm_block_ell(inds, vals, winmap, x, winsegs=segs,
+                                          segoff=off, **kw),
+                "row2": xs.spmm_block_ell(inds, vals, winmap, x,
+                                          winsegs=unsorted, **kw),
+                "row3": xs.spmm_block_ell(inds, vals, winmap, x, **kw),
+                "row4": xs.spmm_block_ell_staged(inds, vals, window, **kw),
+            }
+            plain = xs.spmm_block_ell_plain(inds, vals, winmap, x, **kw)
+            plains = {
+                "row1": plain, "row3": plain,
+                "row2": xs.spmm_block_ell_plain(inds, vals, winmap, x,
+                                                winsegs=unsorted, **kw),
+                "row4": xs.spmm_block_ell_staged_plain(inds, vals, window,
+                                                       **kw),
+            }
+            for key, out in outs.items():
+                err, ok, tol = compare(out, plains[key], storage)
+                if not ok:
+                    raise AssertionError(
+                        f"{key} kernel {pair_name(storage, compute)} "
+                        f"disagrees with its plain version on {shape}: max "
+                        f"err {err}"
+                    )
+                if not torch.equal(out, outs["row1"]):
+                    raise AssertionError(
+                        f"{key} kernel {pair_name(storage, compute)} is not "
+                        f"row 1's output bit for bit on {shape}"
+                    )
+                errs[key] = max(errs[key], err)
+        log(f"sweep {pair_name(storage, compute)}: max abs err vs plain "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tolerance {tol:g}, {len(SWEEP)} shapes); rows 2-4 == "
+            "row 1 bit for bit")
+        for key, err in errs.items():
+            worst[key] = max(worst[key], err)
+    for qdtype in xs.QUANT_DTYPES:
+        for i, shape in enumerate(SWEEP):
+            inds, vals, winmap, x, segs, off = random_shard(
+                shape, torch.float32, device, seed=100 + i
+            )
+            b, s = shape[:2]
+            octaves = np.random.default_rng(200 + i).integers(
+                -6, 7, size=(b, s, 1, 1)
+            )
+            vals = vals * torch.from_numpy(np.exp2(octaves)).to(vals)
+            q, e = (t.to(device) for t in prec.quantize_block_vals(
+                vals.cpu(), qdtype))
+            x16 = x.to(torch.float16)
+            ref = xs.spmm_block_ell(inds, prec.dequantize_block_vals(q, e),
+                                    winmap, x16.float(), winsegs=segs,
+                                    segoff=off)
+            unsorted = unsorted_table(winmap, device)
+            for tables in (dict(winsegs=segs, segoff=off),
+                           dict(winsegs=unsorted), {}):
+                out = xs.spmm_block_ell(inds, q, winmap, x16, scales=e,
+                                        **tables)
+                plain = xs.spmm_block_ell_plain(
+                    inds, q, winmap, x16, scales=e,
+                    winsegs=None if "segoff" in tables
+                    else tables.get("winsegs"),
                 )
-            worst = max(worst, err)
-        log(f"sweep {pair_name(storage, compute)}: max abs err {worst:.3e} "
-            f"(tolerance {tol:g}, {len(SWEEP)} shapes)")
+                if not (torch.equal(out, plain) and torch.equal(out, ref)):
+                    raise AssertionError(
+                        f"quantized kernel ({qdtype}, tables "
+                        f"{sorted(tables)}) differs from its plain version "
+                        f"or from row 1 on the dequantized values, {shape}"
+                    )
+        log(f"sweep quantized {str(qdtype).split('.')[-1]}: sorted, "
+            "unsorted and per-row kernels == plain == row 1 f32/f32 on the "
+            f"dequantized values, bit for bit ({len(SWEEP)} shapes)")
+    return worst
 
 
 def operator_tensors(op, device):
@@ -126,31 +222,49 @@ def operator_tensors(op, device):
     }
 
 
+def quantized(op, qdtype, device):
+    """The bound form of an operator under q8/fp8: packed values and
+    exponents, quantized on the host as ``Reconstructor`` does."""
+    import torch
+
+    from repro_torch.core import precision as prec
+
+    q, e = prec.quantize_block_vals(torch.from_numpy(op.vals[0]), qdtype)
+    return q.to(device), e.to(device)
+
+
 def check_shards(plan, device):
-    """Phase 2b: every kernel pair on the slice's proj and back shards,
-    one apply_operator each.  Returns {operator: max abs err at f16/f32}."""
+    """Phase 2b: every kernel on the slice's proj and back shards.  Rows
+    1-4 for every pair through ``apply_operator``; row 1q for int8 and
+    fp8 on the three fused stagings.  Returns {kernel key: max abs error
+    against its plain version, at f16/f32 (row 1q: q8 and fp8)}."""
     import numpy as np
     import torch
 
+    from repro_torch.core import precision as prec
     from repro_torch.kernels import ops
     from repro_torch.kernels import xct_spmm as xs
 
-    errs = {}
+    errs = dict.fromkeys((key for key, _, _ in KERNELS), 0.0)
     for name in ("proj", "back"):
         op = getattr(plan, name)
         t = operator_tensors(op, device)
+        unsorted = unsorted_table(t["winmap"], device)
         x = torch.from_numpy(
             np.random.default_rng(7).normal(
                 size=(op.n_cols_pad, FUSE)
             ).astype(np.float32)
         ).to(device)
+        args = (t["inds"], t["winmap"])
         for storage, compute in xs.KERNEL_PAIRS:
             vals = t["vals"].to(storage)
-            out = ops.apply_operator(
-                t["inds"], vals, t["winmap"], x, storage_dtype=storage,
-                compute_dtype=compute, winsegs=t["winsegs"],
-                segoff=t["segoff"],
-            )
+            kw = dict(storage_dtype=storage, compute_dtype=compute)
+
+            def apply(**mode):
+                return ops.apply_operator(args[0], vals, args[1], x, **kw,
+                                          **mode)
+
+            out = apply(winsegs=t["winsegs"], segoff=t["segoff"])
             plain = xs.spmm_block_ell_plain(
                 t["inds"], vals, t["winmap"], x.to(storage),
                 compute_dtype=compute,
@@ -164,9 +278,74 @@ def check_shards(plan, device):
                     f"kernel disagrees with its plain version on the {name} "
                     f"shard at {pair_name(storage, compute)}"
                 )
-            if (storage, compute) == (torch.float16, torch.float32):
-                errs[name] = err
-            del out, plain
+            others = {"row2": apply(winsegs=unsorted),
+                      "row3": apply(dma="per_row"),
+                      "row4": apply(staging="gather")}
+            for key, other in others.items():
+                if not torch.equal(other, out):
+                    raise AssertionError(
+                        f"{key} is not row 1's output bit for bit on the "
+                        f"{name} shard at {pair_name(storage, compute)}"
+                    )
+            mixed = (storage, compute) == (torch.float16, torch.float32)
+            if mixed:
+                xs_ = x.to(storage)
+                window = xs_[t["winmap"].long()]
+                plains = {
+                    "row1": plain, "row3": plain,
+                    "row2": xs.spmm_block_ell_plain(
+                        t["inds"], vals, t["winmap"], xs_,
+                        compute_dtype=compute, winsegs=unsorted,
+                    ).reshape(out.shape),
+                    "row4": xs.spmm_block_ell_staged_plain(
+                        t["inds"], vals, window, compute_dtype=compute,
+                    ).reshape(out.shape),
+                }
+                del window
+                for key, ref in plains.items():
+                    got = out if key == "row1" else others[key]
+                    e_, ok, _ = compare(got, ref, storage)
+                    if not ok:
+                        raise AssertionError(
+                            f"{key} disagrees with its plain version on the "
+                            f"{name} shard"
+                        )
+                    errs[key] = max(errs[key], e_)
+            log(f"shard {name} {pair_name(storage, compute)}: unsorted "
+                "(row 2), per-row (row 3) and gather (row 4) == row 1 bit "
+                "for bit" + (" and within tolerance of their plain versions"
+                             if mixed else ""))
+            del out, plain, others
+        x16 = x.to(torch.float16)
+        for qdtype in xs.QUANT_DTYPES:
+            q, e = quantized(op, qdtype, device)
+            ref = xs.spmm_block_ell(
+                t["inds"], prec.dequantize_block_vals(q, e), t["winmap"],
+                x16.float(), winsegs=t["winsegs"], segoff=t["segoff"],
+            )
+            for tables in (dict(winsegs=t["winsegs"], segoff=t["segoff"]),
+                           dict(winsegs=unsorted), {}):
+                out = xs.spmm_block_ell(t["inds"], q, t["winmap"], x16,
+                                        scales=e, **tables)
+                plain = xs.spmm_block_ell_plain(
+                    t["inds"], q, t["winmap"], x16, scales=e,
+                    winsegs=None if "segoff" in tables
+                    else tables.get("winsegs"),
+                )
+                err = float((out - plain).abs().max())
+                if not (torch.equal(out, plain) and torch.equal(out, ref)):
+                    raise AssertionError(
+                        f"quantized kernel ({qdtype}, tables "
+                        f"{sorted(tables)}) on the {name} shard differs from "
+                        f"its plain version (max err {err}) or from row 1 "
+                        "on the dequantized values"
+                    )
+                errs["row1q"] = max(errs["row1q"], err)
+            log(f"shard {name} quantized {str(qdtype).split('.')[-1]}: "
+                "sorted, unsorted and per-row kernels == plain == row 1 "
+                "f32/f32 on the dequantized values, bit for bit (max |out| "
+                f"{float(ref.abs().max()):.3e})")
+            del q, e, ref, out, plain
         del t
     return errs
 
@@ -192,61 +371,69 @@ def build_problem(n, angles):
     return geo, a, plan
 
 
-def main_path(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS):
-    """Phase 3.  Returns launches per solve and the solve records."""
+def main_path(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS,
+              ab_iters=AB_ITERS):
+    """Phase 3.  Returns the solve records; the caller reads the launch
+    counts around it."""
     import numpy as np
     import torch
 
+    from repro_torch.core.precision import get_policy
     from repro_torch.core.recon import ReconConfig, Reconstructor
     from repro_torch.data.phantom import phantom_slices, simulate_measurements
+    from repro_torch.kernels import ops
     from repro_torch.kernels import xct_spmm as xs
 
     n = plan.geo.n
     x_true = phantom_slices(n, slices, seed=0)
     sino = simulate_measurements(a, x_true, seed=0)
-    expected = 2 * (iters + 1) * (slices // fuse)
+    cuda = device.type == "cuda"
     runs = {}
-    launches = 0
-    for precision in ("mixed", "single"):
+
+    def solve(precision, n_iters, **extra):
         rec = Reconstructor(
-            plan, cfg=ReconConfig(precision=precision, fuse=fuse),
+            plan, cfg=ReconConfig(precision=precision, fuse=fuse, **extra),
             device=device,
         )
-        if device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        xs.spmm_block_ell.launches = 0
+        before = dict(xs.LAUNCHES)
         t0 = time.perf_counter()
-        x, res = rec.reconstruct(sino, iters=iters)
+        x, res = rec.reconstruct(sino, iters=n_iters)
         wall = time.perf_counter() - t0
-        count = xs.spmm_block_ell.launches
-        launches += count
-        peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
-                else 0)
+        count = {k: v - before[k] for k, v in xs.LAUNCHES.items()
+                 if v != before[k]}
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
         rel = np.linalg.norm(x - x_true, axis=0) / np.linalg.norm(
             x_true, axis=0
         )
-        runs[precision] = dict(rel=float(rel.mean()), wall_s=wall,
-                               peak_bytes=int(peak), launches=count)
-        log(f"solve {precision}: {iters} iters x {slices} slices in "
+        label = "/".join([precision] + [f"{k}={v}" for k, v in extra.items()])
+        log(f"solve {label}: {n_iters} iters x {slices} slices in "
             f"{wall:.2f} s | rel err mean {rel.mean():.4f} | residual "
             f"{res[0].mean():.4e} -> {res[-1].mean():.4e} | kernel "
             f"launches {count} | peak device memory {peak / 2**30:.2f} GiB")
         if not np.isfinite(x).all():
-            raise AssertionError(f"{precision}: non-finite solution")
-        if x.shape != x_true.shape or res.shape != (iters, slices):
-            raise AssertionError(f"{precision}: shapes {x.shape} {res.shape}")
+            raise AssertionError(f"{label}: non-finite solution")
+        if x.shape != x_true.shape or res.shape != (n_iters, slices):
+            raise AssertionError(f"{label}: shapes {x.shape} {res.shape}")
+        return rec, x, res, dict(rel=float(rel.mean()), wall_s=wall,
+                                 peak_bytes=int(peak), launches=count)
+
+    expected = 2 * (iters + 1) * (slices // fuse)
+    for precision in ("mixed", "single", "q8", "fp8"):
+        rec, x, res, runs[precision] = solve(precision, iters)
         if not (res[-1] < 0.05 * res[0]).all():
             raise AssertionError(f"{precision}: residual did not fall 20x")
-        if device.type == "cuda" and count != expected:
+        key = "sorted_q" if get_policy(precision).quantized else "sorted"
+        if cuda and runs[precision]["launches"] != {key: expected}:
             raise AssertionError(
-                f"{precision}: {count} kernel launches, expected "
-                f"2*(iters+1)*(slices/fuse) = {expected}"
+                f"{precision}: launches {runs[precision]['launches']}, "
+                f"expected {{{key!r}: 2*(iters+1)*(slices/fuse) = "
+                f"{expected}}}"
             )
         if precision == "single":
-            xs.spmm_block_ell.launches = 0
             yhat = rec.project(x_true)
-            launches += xs.spmm_block_ell.launches
             ref = a @ x_true
             err = np.abs(yhat - ref)
             bound = 2e-4 * np.abs(ref) + 2e-4 * np.abs(ref).max()
@@ -256,16 +443,68 @@ def main_path(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS):
             if not (err <= bound).all():
                 raise AssertionError("project disagrees with scipy A @ x")
         del rec
-    if not runs["mixed"]["rel"] < runs["single"]["rel"] + 0.03:
-        raise AssertionError(
-            f"mixed rel err {runs['mixed']['rel']:.4f} is not within +0.03 "
-            f"of single's {runs['single']['rel']:.4f}"
-        )
-    return launches, runs
+    for precision in ("mixed", "q8", "fp8"):
+        if not runs[precision]["rel"] < runs["single"]["rel"] + 0.03:
+            raise AssertionError(
+                f"{precision} rel err {runs[precision]['rel']:.4f} is not "
+                f"within +0.03 of single's {runs['single']['rel']:.4f}"
+            )
+
+    # the staging A/B: the same windows, so the same bits
+    ab_expected = 2 * (ab_iters + 1) * (slices // fuse)
+    chunks = sum(
+        -(-op.inds.shape[1] // ops._gather_blocks_per_call(
+            op.inds.shape[1], op.inds.shape[2], op.winmap.shape[-1], fuse, 2))
+        for op in (plan.proj, plan.back)
+    )
+    base = None
+    for label, extra, want in (
+        ("default", {}, {"sorted": ab_expected}),
+        ("per_row", {"dma": "per_row"}, {"per_row": ab_expected}),
+        ("gather", {"staging": "gather"},
+         {"staged": ab_expected // 2 * chunks}),
+    ):
+        rec, x, res, runs[f"mixed_{label}"] = solve("mixed", ab_iters,
+                                                    **extra)
+        del rec
+        if cuda and runs[f"mixed_{label}"]["launches"] != want:
+            raise AssertionError(
+                f"mixed/{label}: launches {runs[f'mixed_{label}']['launches']}"
+                f", expected {want}"
+            )
+        if base is None:
+            base = (x, res)
+        elif not (np.array_equal(x, base[0]) and np.array_equal(res, base[1])):
+            raise AssertionError(
+                f"mixed/{label}: solution differs from the default solve"
+            )
+    log(f"staging A/B: per_row and gather {ab_iters}-iteration solutions == "
+        "the default solve, bit for bit")
+
+    # row 2: one projection and one backprojection on unsorted tables
+    rng = np.random.default_rng(11)
+    for name in ("proj", "back"):
+        op = getattr(plan, name)
+        t = operator_tensors(op, device)
+        x = torch.from_numpy(
+            rng.normal(size=(op.n_cols_pad, fuse)).astype(np.float32)
+        ).to(device)
+        out = ops.apply_operator(t["inds"], t["vals"], t["winmap"], x,
+                                 winsegs=unsorted_table(t["winmap"], device))
+        ref = ops.apply_operator(t["inds"], t["vals"], t["winmap"], x,
+                                 winsegs=t["winsegs"], segoff=t["segoff"])
+        if not torch.equal(out, ref):
+            raise AssertionError(f"unsorted tables: {name} differs from "
+                                 "the class-sorted path")
+        del t
+    log("apply_operator on unsorted tables (row 2): proj and back == the "
+        "class-sorted path, bit for bit")
+    return runs
 
 
-def profile_solve(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS):
-    """Phase 4: where a mixed solve's device time goes (torch.profiler).
+def profile_solve(plan, a, device, precision="mixed", slices=SLICES,
+                  fuse=FUSE, iters=ITERS):
+    """Phase 4: where a solve's device time goes (torch.profiler).
 
     Returns {wall_s, device_s, busy_share, top: [(name, ms, calls)]};
     device_s is None when the profiler saw no device activity."""
@@ -277,7 +516,7 @@ def profile_solve(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS):
     from repro_torch.data.phantom import phantom_slices, simulate_measurements
 
     x_true = phantom_slices(plan.geo.n, slices, seed=0)
-    rec = Reconstructor(plan, cfg=ReconConfig(precision="mixed", fuse=fuse),
+    rec = Reconstructor(plan, cfg=ReconConfig(precision=precision, fuse=fuse),
                         device=device)
     staged = rec.stage_sino(simulate_measurements(a, x_true, seed=0))
     rec.reconstruct(staged, iters=1)  # warm-up outside the window
@@ -303,9 +542,10 @@ def profile_solve(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS):
     )
     device_s = sum(r[1] for r in rows) / 1e3 if rows else None
     if device_s is None:
-        log("profile mixed solve: no device time in the trace (not measured)")
+        log(f"profile {precision} solve: no device time in the trace (not "
+            "measured)")
     else:
-        log(f"profile mixed solve (profiler on): wall {wall:.3f} s, device "
+        log(f"profile {precision} solve (profiler on): wall {wall:.3f} s, device "
             f"busy {device_s:.3f} s, idle share {1 - device_s / wall:.3f}")
         for name, ms, calls in rows[:8]:
             log(f"  {ms:9.2f} ms {calls:6d} calls  {name[:90]}")
@@ -330,39 +570,76 @@ def cuda_ms(fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def times(plan, a, device, storage, compute):
-    """Phase 5: per-application times at F=16 for proj and back."""
+def bound(slots, vals_bytes, x_bytes, out_bytes, extra=0):
+    """The least time for one application: the bytes each input is read
+    once and the output written once over the device-memory rate, or 2
+    flops per slot per column over the f32 rate, whichever is larger."""
+    moved = slots * (2 + vals_bytes) + x_bytes + out_bytes + extra
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = 2 * slots * FUSE / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                bytes=moved, flops_ms=flops_ms)
+
+
+def ell_csr(t, vals, n_cols):
+    """The shard as a CSR matrix [B*R, C] holding ``vals`` (f32): one
+    ``torch.sparse.mm`` with it computes the kernels' function."""
+    import torch
+
+    inds, winmap = t["inds"], t["winmap"]
+    b, s, r, k = inds.shape
+    cols = torch.gather(winmap.long(), 2, inds.long().reshape(b, s, r * k))
+    rows = (torch.arange(b, device=inds.device)[:, None, None] * r
+            + torch.arange(r, device=inds.device).repeat_interleave(k)
+            [None, None, :]).expand(b, s, r * k)
+    v = vals.reshape(b, s, r * k)
+    keep = v != 0
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols[keep]]), v[keep].float(),
+        size=(b * r, n_cols),
+    ).coalesce()
+    return coo.to_sparse_csr()
+
+
+def times(plan, a, device):
+    """Phase 5: per-application times at F=16 of every kernel on proj and
+    back, its plain version, the library yardstick and its bound.
+    Returns {kernel key: {variant: {operator: record}}}."""
     import numpy as np
     import scipy.sparse as sp
     import torch
 
+    from repro_torch.core import precision as prec
+    from repro_torch.kernels import ops
     from repro_torch.kernels import xct_spmm as xs
 
-    out = {}
+    out = {key: {} for key, _, _ in KERNELS}
     mats = {"proj": a, "back": sp.csr_matrix(a.T)}
+    f16, f32 = torch.float16, torch.float32
+
+    def record(key, variant, name, k_ms, p_ms, lib_ms, bnd, **more):
+        rec = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **bnd, **more)
+        out[key].setdefault(variant, {})[name] = rec
+        log(f"time {key} {variant} {name} F={FUSE}: kernel {k_ms:.4f} ms | "
+            f"plain {p_ms:.3f} ms | torch.sparse.mm {lib_ms:.4f} ms | bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bytes'] / 1e9:.3f} GB at "
+            f"3.35 TB/s; operations {bnd['flops_ms']:.4f} ms at 67 TFLOP/s) "
+            f"| roofline share {bnd['bound_ms'] / k_ms:.3f}"
+            + "".join(f" | {k} {v}" for k, v in more.items()))
+
     for name in ("proj", "back"):
         op = getattr(plan, name)
         t = operator_tensors(op, device)
-        vals = t["vals"].to(storage)
-        x = torch.from_numpy(
+        _, b, s, r, k = op.inds.shape
+        slots = b * s * r * k
+        out_bytes = b * r * FUSE * 4
+        x32 = torch.from_numpy(
             np.random.default_rng(3).normal(
                 size=(op.n_cols_pad, FUSE)
             ).astype(np.float32)
-        ).to(device, storage)
-
-        def kernel():
-            return xs.spmm_block_ell(
-                t["inds"], vals, t["winmap"], x, compute_dtype=compute,
-                winsegs=t["winsegs"], segoff=t["segoff"],
-            )
-
-        def plain():
-            return xs.spmm_block_ell_plain(
-                t["inds"], vals, t["winmap"], x, compute_dtype=compute
-            )
-
-        k_ms = cuda_ms(kernel, 20)
-        p_ms = cuda_ms(plain, 3, warm=1)
+        ).to(device)
+        x16 = x32.to(f16)
         m = mats[name].tocsr()
         csr = torch.sparse_csr_tensor(
             torch.from_numpy(m.indptr.astype(np.int64)),
@@ -376,25 +653,95 @@ def times(plan, a, device, storage, compute):
             ).astype(np.float32)
         ).to(device)
         lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, xd), 20)
-        _, b, s, r, k = op.inds.shape
-        slots = b * s * r * k
-        sb = torch.tensor([], dtype=storage).element_size()
-        moved = slots * (2 + sb) + op.n_cols_pad * FUSE * sb + b * r * FUSE * 4
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        flops_ms = 2 * slots * FUSE / F32_FLOP_PER_S * 1e3
-        out[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                         bound_ms=max(bytes_ms, flops_ms),
-                         bound_by="bytes" if bytes_ms >= flops_ms
-                         else "operations",
-                         bytes=moved, slots=slots)
-        log(f"time {name} {pair_name(storage, compute)} F={FUSE}: kernel "
-            f"{k_ms:.4f} ms | plain {p_ms:.3f} ms | torch.sparse.mm "
-            f"(cuSPARSE, f32 CSR) {lib_ms:.4f} ms | bound {bytes_ms:.4f} ms "
-            f"({moved / 1e9:.3f} GB at 3.35 TB/s; operations "
-            f"{flops_ms:.4f} ms at 67 TFLOP/s) | roofline share "
-            f"{max(bytes_ms, flops_ms) / k_ms:.3f}")
-        del t, csr
+        del csr
+
+        # row 1 under mixed and single
+        for variant, storage in (("mixed", f16), ("single", f32)):
+            vals = t["vals"].to(storage)
+            x = x32.to(storage)
+            sb = x.element_size()
+            k_ms = cuda_ms(lambda: xs.spmm_block_ell(
+                t["inds"], vals, t["winmap"], x, compute_dtype=f32,
+                winsegs=t["winsegs"], segoff=t["segoff"]), 20)
+            p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
+                t["inds"], vals, t["winmap"], x, compute_dtype=f32), 3,
+                warm=1)
+            record("row1", variant, name, k_ms, p_ms, lib_ms,
+                   bound(slots, sb, op.n_cols_pad * FUSE * sb, out_bytes))
+
+        vals = t["vals"].to(f16)
+        x_bytes = op.n_cols_pad * FUSE * 2
+        mixed_bound = bound(slots, 2, x_bytes, out_bytes)
+        # row 2: unsorted segment table
+        unsorted = unsorted_table(t["winmap"], device)
+        k_ms = cuda_ms(lambda: xs.spmm_block_ell(
+            t["inds"], vals, t["winmap"], x16, winsegs=unsorted), 20)
+        p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
+            t["inds"], vals, t["winmap"], x16, winsegs=unsorted), 3, warm=1)
+        record("row2", "mixed", name, k_ms, p_ms, lib_ms, mixed_bound,
+               table_bytes=unsorted.numel() * 4)
+        del unsorted
+        # row 3: one copy per window row
+        k_ms = cuda_ms(lambda: xs.spmm_block_ell(
+            t["inds"], vals, t["winmap"], x16), 20)
+        p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
+            t["inds"], vals, t["winmap"], x16), 3, warm=1)
+        record("row3", "mixed", name, k_ms, p_ms, lib_ms, mixed_bound,
+               table_bytes=t["winmap"].numel() * 4)
+        # row 4: windows gathered into device memory, 64 MB chunks
+        buf = op.winmap.shape[-1]
+        bpc = ops._gather_blocks_per_call(b, s, buf, FUSE, 2)
+        spans = [(lo, min(b, lo + bpc)) for lo in range(0, b, bpc)]
+        window = x16[t["winmap"].long()]  # the whole [B, S, BUF, F] tensor
+        k_ms = cuda_ms(lambda: [xs.spmm_block_ell_staged(
+            t["inds"][lo:hi], vals[lo:hi], window[lo:hi]) for lo, hi in spans],
+            10)
+        one_ms = cuda_ms(lambda: xs.spmm_block_ell_staged(
+            t["inds"], vals, window), 10)
+        g_ms = cuda_ms(lambda: [x16[t["winmap"][lo:hi].long()]
+                                for lo, hi in spans], 10)
+        a_ms = cuda_ms(lambda: ops.apply_operator(
+            t["inds"], vals, t["winmap"], x16, staging="gather"), 10)
+        p_ms = cuda_ms(lambda: xs.spmm_block_ell_staged_plain(
+            t["inds"], vals, window), 3, warm=1)
+        record("row4", "mixed", name, k_ms, p_ms, lib_ms,
+               bound(slots, 2, x_bytes, out_bytes, extra=window.numel() * 2),
+               launches_per_apply=len(spans), rows_per_chunk=bpc,
+               gather_ms=round(g_ms, 4), one_launch_ms=round(one_ms, 4),
+               apply_operator_ms=round(a_ms, 4))
+        del window
+        # row 1q: int8 and fp8 values on the class-sorted staging
+        for variant, qdtype in (("q8", torch.int8),
+                                ("fp8", torch.float8_e4m3fn)):
+            q, e = quantized(op, qdtype, device)
+            k_ms = cuda_ms(lambda: xs.spmm_block_ell(
+                t["inds"], q, t["winmap"], x16, scales=e,
+                winsegs=t["winsegs"], segoff=t["segoff"]), 20)
+            p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
+                t["inds"], q, t["winmap"], x16, scales=e), 3, warm=1)
+            qcsr = ell_csr(t, prec.dequantize_block_vals(q, e),
+                           op.n_cols_pad)
+            q_lib_ms = cuda_ms(lambda: torch.sparse.mm(qcsr, x32), 20)
+            del qcsr
+            record("row1q", variant, name, k_ms, p_ms, q_lib_ms,
+                   bound(slots, 1, x_bytes, out_bytes, extra=b * s * 4))
+            del q, e
+        del t
     return out
+
+
+def entry(key, name, replaces, launches, err, per_operator):
+    """One element of the ``kernels`` line: proj + back per application."""
+    first = next(iter(per_operator.values()))
+    total = {f: first["proj"][f] + first["back"][f]
+             for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/xct_spmm.cu",
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        **total, "bound_by": first["proj"]["bound_by"],
+        "per_operator": per_operator,
+    }
 
 
 def card_line():
@@ -422,39 +769,43 @@ def main():
     t0 = time.perf_counter()
     path, secs, build_log = xs.build()
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {secs:.1f} s)")
+        f"(nvcc {secs:.1f} s, {len(xs.ENTRIES)} entries)")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    check_sweep(device)
+    sweep_errs = check_sweep(device)
     geo, a, plan = build_problem(N, ANGLES)
     shard_errs = check_shards(plan, device)
-    launches, runs = main_path(plan, a, device)
-    runs["mixed"]["profile"] = profile_solve(plan, a, device)
-    timing = {
-        "mixed": times(plan, a, device, torch.float16, torch.float32),
-        "single": times(plan, a, device, torch.float32, torch.float32),
+    xs.reset_launches()
+    runs = main_path(plan, a, device)
+    launches = dict(xs.LAUNCHES)
+    log(f"main path launches per kernel: {launches} (spmm_block_ell "
+        f"{xs.spmm_block_ell.launches}, spmm_block_ell_staged "
+        f"{xs.spmm_block_ell_staged.launches})")
+    counts = {
+        "row1": launches["sorted"],
+        "row1q": launches["sorted_q"] + launches["unsorted_q"]
+        + launches["per_row_q"],
+        "row2": launches["unsorted"], "row3": launches["per_row"],
+        "row4": launches["staged"],
     }
-    t = timing["mixed"]
-    entry = {
-        "name": "spmm_block_ell",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/xct_spmm.cu",
-        "replaces": "src/repro/kernels/xct_spmm.py:249",
-        "launches": launches,
-        "max_abs_err": max(shard_errs.values()),
-        # one projector plus one backprojector application at F=16,
-        # f16 storage / f32 compute (the mixed policy)
-        "ms": t["proj"]["ms"] + t["back"]["ms"],
-        "plain_ms": t["proj"]["plain_ms"] + t["back"]["plain_ms"],
-        "bound_ms": t["proj"]["bound_ms"] + t["back"]["bound_ms"],
-        "bound_by": t["proj"]["bound_by"],
-        "library_ms": t["proj"]["library_ms"] + t["back"]["library_ms"],
-        "per_operator": timing,
-        "solves": runs,
-    }
-    log(json.dumps({"kernels": [entry]}))
+    missing = [key for key, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+    profiles = {p: profile_solve(plan, a, device, precision=p)
+                for p in ("mixed", "q8")}
+    timing = times(plan, a, device)
+    kernels = []
+    for key, name, replaces in KERNELS:
+        kernels.append(entry(
+            key, name, replaces, counts[key],
+            max(sweep_errs[key], shard_errs[key]), timing[key],
+        ))
+    kernels[0]["solves"] = runs
+    kernels[0]["profiles"] = profiles
+    log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

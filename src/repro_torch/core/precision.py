@@ -14,10 +14,16 @@ in float32 with half-to-even rounding (``torch.round``, like
 bit-equal to the reference's except where ``log2`` lies within a float32
 ulp of a half-integer and the two frameworks' ``log`` round differently
 (ROADMAP.md queue 3).
+
+The quantized-operator rungs ``q8`` and ``fp8`` pack the operator
+*values* into int8 or fp8-e4m3 with one power-of-two exponent per
+(row-block, stage) (:func:`quantize_block_vals`); vectors and the wire
+stay at the ``mixed`` policy's f16 and compute at f32.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -29,12 +35,14 @@ __all__ = [
     "adaptive_scale",
     "adaptive_scale_cols",
     "qcast",
+    "quantize_block_vals",
+    "dequantize_block_vals",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class Precision:
-    """A storage/compute/communication dtype triple.
+    """A storage/compute/communication dtype triple (plus operator vals).
 
     Attributes:
       storage: dtype of resident vectors and of the staged input windows
@@ -42,6 +50,9 @@ class Precision:
       compute: FMA/accumulation dtype inside kernels.
       comm: wire dtype for partial-data reductions.
       adaptive: apply max-norm power-of-two rescaling around narrow casts.
+      vals: dtype of the packed operator values when it differs from
+        ``storage`` (int8 / fp8-e4m3 with per-block scales, the quantized
+        rungs); ``None`` means "same as storage".
     """
 
     name: str
@@ -49,6 +60,7 @@ class Precision:
     compute: torch.dtype
     comm: torch.dtype
     adaptive: bool = False
+    vals: torch.dtype | None = None
 
     @property
     def storage_bytes(self) -> int:
@@ -60,12 +72,17 @@ class Precision:
 
     @property
     def vals_dtype(self) -> torch.dtype:
-        """Operator value dtype (the vector storage dtype on float rungs)."""
-        return self.storage
+        """Operator value dtype (defaults to the vector storage dtype)."""
+        return self.storage if self.vals is None else self.vals
 
     @property
     def vals_bytes(self) -> int:
         return self.vals_dtype.itemsize
+
+    @property
+    def quantized(self) -> bool:
+        """True when operator vals carry per-block scales (1-byte tier)."""
+        return self.vals is not None
 
 
 POLICIES = {
@@ -86,10 +103,17 @@ POLICIES = {
         "mixed_bf16", torch.bfloat16, torch.float32, torch.bfloat16,
         adaptive=True,
     ),
+    # quantized operator tier: int8 / fp8-e4m3 vals with per-block
+    # power-of-two scales, dequantized inline in the kernel
+    "q8": Precision(
+        "q8", torch.float16, torch.float32, torch.float16, adaptive=True,
+        vals=torch.int8,
+    ),
+    "fp8": Precision(
+        "fp8", torch.float16, torch.float32, torch.float16, adaptive=True,
+        vals=torch.float8_e4m3fn,
+    ),
 }
-
-# the quantized-operator rungs of the reference, not ported yet
-_NOT_PORTED = ("q8", "fp8")
 
 # Spelling conveniences: the dtype names people type first.
 ALIASES = {
@@ -102,11 +126,6 @@ ALIASES = {
 
 def get_policy(name: str) -> Precision:
     key = ALIASES.get(name, name)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"precision {key!r} (quantized operator values) is not ported "
-            "yet: ROADMAP.md queue 2, the quantized kernel"
-        )
     try:
         return POLICIES[key]
     except KeyError:
@@ -125,16 +144,23 @@ def _pow2(exp):
     return ((exp.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
-def _norm_exponent(m, target: float):
-    """``clip(round(log2(target / max(m, tiny))), -100, 100)`` in float32.
+def _log2_ratio(target: float, m):
+    """``log2(target / max(m, tiny))`` in float32, as the reference rounds it.
 
-    log2 is taken as ``log(v) * float32(1/ln 2)``, the formula
-    ``jnp.log2`` lowers to, rather than ``torch.log2``: the two round
-    differently right at half-integers (ROADMAP.md queue 3).
+    The quotient is a correctly rounded division: PyTorch's ``target / m``
+    multiplies by the reciprocal of ``m`` and rounds twice, which moves
+    the quotient off an exact power of two when ``m`` is one ulp above
+    ``target * 2**k``.  log2 is then ``log(v) * float32(1/ln 2)``, the
+    formula ``jnp.log2`` lowers to, rather than ``torch.log2``: the two
+    round differently right at half-integers (ROADMAP.md queue 3).
     """
     m = torch.clamp_min(m, torch.finfo(torch.float32).tiny)
-    exp = torch.round(torch.log(target / m) * _INV_LN2)
-    return torch.clamp(exp, -100.0, 100.0)
+    return torch.log(torch.div(torch.full_like(m, target), m)) * _INV_LN2
+
+
+def _norm_exponent(m, target: float):
+    """``clip(round(log2(target / max(m, tiny))), -100, 100)`` in float32."""
+    return torch.clamp(torch.round(_log2_ratio(target, m)), -100.0, 100.0)
 
 
 def adaptive_scale(x, target: float = 256.0):
@@ -170,3 +196,39 @@ def qcast(x, dtype, *, adaptive: bool = False, target: float = 256.0):
                                        device=x.device)
     s = adaptive_scale(x, target=target)
     return (x.to(torch.float32) * s).to(dtype), 1.0 / s
+
+
+def _quant_target(dtype) -> float:
+    """Max-|value| the quantized grid should land on: int8's symmetric
+    127, or fp8-e4m3's 240 (max finite 448, with headroom)."""
+    return 240.0 if dtype.is_floating_point else 127.0
+
+
+def quantize_block_vals(vals, dtype):
+    """Pack operator values into ``dtype`` with per-block scales.
+
+    One power-of-two scale per block (every leading index of ``vals
+    [..., R, K]``) steers the block's max |value| onto the narrow grid.
+    The exponent is ``floor`` of ``log2(target / max|v|)``, so the scaled
+    maximum lands at or below the grid edge and nothing clips.
+
+    Returns ``(q, exp)``: the packed ``[..., R, K]`` values and the int32
+    ``[...]`` dequantization exponents, ``vals ~= q * 2.0**exp``.
+    """
+    lead = vals.shape[:-2]
+    flat = vals.to(torch.float32).reshape(max(1, math.prod(lead)), -1)
+    m = torch.amax(torch.abs(flat), dim=1)
+    sexp = torch.clamp(
+        torch.floor(_log2_ratio(_quant_target(dtype), m)), -100.0, 100.0
+    )
+    q = flat * _pow2(sexp)[:, None]
+    if not dtype.is_floating_point:
+        q = torch.clamp(torch.round(q), -127.0, 127.0)
+    q = q.to(dtype).reshape(vals.shape)
+    return q, (-sexp).to(torch.int32).reshape(lead)
+
+
+def dequantize_block_vals(q, exp, dtype=torch.float32):
+    """Widen per-block quantized values: ``q * 2.0**exp`` in f32."""
+    scale = _pow2(exp.to(torch.int32))
+    return (q.to(torch.float32) * scale[..., None, None]).to(dtype)

@@ -25,7 +25,12 @@ from ..kernels.ops import (
 from ..resil.errors import NonFiniteSolveError
 from .partition import Plan
 from .pipeline import pipelined_apply
-from .precision import adaptive_scale_cols, get_policy, qcast
+from .precision import (
+    adaptive_scale_cols,
+    get_policy,
+    qcast,
+    quantize_block_vals,
+)
 from .solver import cgnr
 
 __all__ = ["ReconConfig", "Reconstructor", "StagedSlab", "resolve_device"]
@@ -66,14 +71,14 @@ class StagedSlab:
 @dataclasses.dataclass(frozen=True)
 class ReconConfig:
     precision: str = "mixed"  # paper ladder: double|single|half|mixed
-    #   (+bf16 variants)
+    #   (+bf16 variants, +q8/fp8 quantized-operator tiers)
     comm_mode: str = "hier"  # direct | rs | hier (sparse modes: multi-GPU)
     wire: str = "native"  # hier-sparse slow-axis wire: native | q8
     fuse: int = 16  # paper's minibatch size (FFACTOR)
     overlap: bool = True  # Fig. 8 pipelining order
     use_ref: bool = False  # oracle instead of the kernel
-    staging: str = "fused"  # in-kernel window staging
-    dma: str = "coalesced"  # run-length segment window staging
+    staging: str = "fused"  # in-kernel window staging | gather (A/B)
+    dma: str = "coalesced"  # run-length segment window staging | per_row
     # kept for the reference's field set; no effect on Hopper (see
     # kernels.ops.apply_operator)
     smem_budget: int | None = None
@@ -175,10 +180,12 @@ class Reconstructor:
             self._rank_rows = rank
         return np.asarray(y_curve)[self._rank_rows]
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host numpy -> device tensor through pinned memory, without
-        blocking the host (the copy is ordered on the current stream)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
+    def _upload(self, a) -> torch.Tensor:
+        """Host numpy or tensor -> device tensor through pinned memory,
+        without blocking the host (the copy is ordered on the current
+        stream)."""
+        t = (a.contiguous() if isinstance(a, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(a)))
         if self.device.type == "cuda":
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
@@ -200,7 +207,19 @@ class Reconstructor:
                     winmap_segments(op.winmap), op.winmap.shape[-1]
                 )
             arrs[f"{name}_inds"] = self._upload(op.inds[0])
-            arrs[f"{name}_vals"] = self._upload(op.vals[0]).to(pol.storage)
+            if pol.quantized:
+                # pack once at bind time, on the host: int8/fp8 values and
+                # per-(block, stage) power-of-two dequant exponents the
+                # kernel applies inline
+                q, exp = quantize_block_vals(
+                    torch.from_numpy(op.vals[0]), pol.vals_dtype
+                )
+                arrs[f"{name}_vals"] = self._upload(q)
+                arrs[f"{name}_vscale"] = self._upload(exp)
+            else:
+                arrs[f"{name}_vals"] = self._upload(op.vals[0]).to(
+                    pol.storage
+                )
             arrs[f"{name}_winmap"] = self._upload(op.winmap[0])
             arrs[f"{name}_winsegs"] = self._upload(segs[0].astype(np.int32))
             arrs[f"{name}_segoff"] = self._upload(off[0].astype(np.int32))
@@ -231,6 +250,7 @@ class Reconstructor:
                     winsegs=a[f"{prefix}_winsegs"],
                     segoff=a[f"{prefix}_segoff"],
                     smem_budget=cfg.smem_budget,
+                    scales=a.get(f"{prefix}_vscale"),
                 )
 
             idx = a[f"{prefix}_row_map"]

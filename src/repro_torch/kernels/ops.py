@@ -1,22 +1,30 @@
 """Shard-local projection/backprojection dispatch + the window-segment builder.
 
 ``apply_operator`` is the single-device (shard-local) fused
-projection/backprojection.  Its one ported path (``staging="fused"``,
+projection/backprojection.  The default path (``staging="fused"``,
 ``dma="coalesced"``) hands the whole local slab to
 ``xct_spmm.spmm_block_ell``, whose CUDA kernel stages each stage's
 window in shared memory from the class-sorted run-length segment table
 built here (``winmap_segments`` + ``sort_segments_by_class``, byte for
-byte the reference's tables).  On CPU tensors the same call runs the
-kernel's plain PyTorch version.  ``use_ref=True`` swaps in the oracle
-of ``ref.py`` so every higher layer can be validated with one flag.
+byte the reference's tables).  ``dma="per_row"`` stages one row per
+``winmap`` entry, and a segment table without class offsets runs the
+unsorted-segment kernel; both are the reference's A/B baselines.
+``staging="gather"`` keeps the reference's legacy two-pass path: a
+plain gather materializes the ``[B, S, BUF, F]`` windows in device
+memory, chunked over row-blocks under a ~64 MB transient budget, and
+``xct_spmm.spmm_block_ell_staged`` consumes them.  On CPU tensors every
+path runs the kernels' plain PyTorch versions.  ``use_ref=True`` swaps
+in the oracle of ``ref.py`` so every higher layer can be validated with
+one flag.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core.precision import dequantize_block_vals
 from . import ref
-from .xct_spmm import _dma_classes, spmm_block_ell
+from .xct_spmm import _dma_classes, spmm_block_ell, spmm_block_ell_staged
 
 __all__ = [
     "apply_operator",
@@ -25,6 +33,7 @@ __all__ = [
     "sort_segments_by_class",
     "segment_histogram",
     "dma_issue_count",
+    "staged_window_bytes",
     "STAGINGS",
     "DMA_MODES",
 ]
@@ -163,33 +172,37 @@ def segment_histogram(winsegs) -> dict:
     return {int(u): int(c) for u, c in zip(uniq, cnt)}
 
 
-def check_supported(staging: str, dma: str, scales=None) -> None:
-    """Raise for a mode the port does not run yet (never fall back).
+def staged_window_bytes(s: int, buf: int, f: int,
+                        storage_bytes: int) -> int:
+    """Transient device bytes of ONE row-block's gathered windows: the
+    ``[S, BUF, F]`` tensor only ``staging="gather"`` allocates."""
+    return s * buf * f * storage_bytes
 
-    ``staging="gather"``, ``dma="per_row"`` and quantized ``scales`` are
-    the reference's other Pallas kernels, queued in ROADMAP.md queue 2.
+
+def _gather_blocks_per_call(b, s, buf, f, bytes_per, budget=64 << 20):
+    """Row-blocks whose gathered windows fit a ~64 MB transient budget.
+
+    ``bytes_per`` is the storage dtype's itemsize.  The largest divisor
+    of ``b`` that fits, as the reference chunks its gather path.
     """
+    per_block = staged_window_bytes(s, buf, f, bytes_per)
+    want = max(1, budget // max(1, per_block))
+    if want >= b:
+        return b
+    for d in range(min(want, b), 0, -1):
+        if b % d == 0:
+            return d
+    return 1
+
+
+def check_supported(staging: str, dma: str) -> None:
+    """Raise ``ValueError`` for an unknown staging or dma mode."""
     if staging not in STAGINGS:
         raise ValueError(
             f"unknown staging {staging!r}; one of {STAGINGS}"
         )
     if dma not in DMA_MODES:
         raise ValueError(f"unknown dma {dma!r}; one of {DMA_MODES}")
-    if scales is not None:
-        raise NotImplementedError(
-            "quantized operator values (scales=, the q8/fp8 policies) are "
-            "not ported yet: ROADMAP.md queue 2, the quantized kernel"
-        )
-    if staging == "gather":
-        raise NotImplementedError(
-            'staging="gather" (the pre-staged window kernel) is not '
-            "ported yet: ROADMAP.md queue 2, spmm_block_ell_staged"
-        )
-    if dma == "per_row":
-        raise NotImplementedError(
-            'dma="per_row" (one copy per window row) is not ported yet: '
-            "ROADMAP.md queue 2, _spmm_fused_kernel"
-        )
 
 
 def apply_operator(
@@ -206,6 +219,7 @@ def apply_operator(
     winsegs=None,
     segoff=None,
     smem_budget: int | None = None,
+    blocks_per_call: int | None = None,
     scales=None,
 ):
     """Shard-local fused SpMM: returns the fp32 partial rows [B*R, F].
@@ -213,52 +227,72 @@ def apply_operator(
     Args:
       inds: [B, S, R, K] int16 window-local indices.
       vals: [B, S, R, K] float lengths (cast to ``storage_dtype`` here
-        unless already that dtype).
+        unless already that dtype), or packed int8/fp8 with ``scales``.
       winmap: [B, S, BUF] device-local input column ids.
       x_loc: [C, F] local input slab (any float dtype; cast to
         ``storage_dtype``, computed in ``compute_dtype``).
       use_ref: run the ``ref.spmm_ref`` oracle instead of the kernel.
-      staging: "fused" (the kernel stages windows itself).  "gather" is
-        not ported yet and raises ``NotImplementedError``.
-      dma: "coalesced" (windows staged from run-length segments).
-        "per_row" is not ported yet and raises ``NotImplementedError``.
+      staging: "fused" (the kernel stages windows itself) or "gather"
+        (windows gathered into device memory first, chunked over
+        row-blocks; the reference's A/B baseline).
+      dma: "coalesced" (windows staged from run-length segments) or
+        "per_row" (one copy per window row).  Fused staging only.
       winsegs, segoff: the class-sorted segment table and its per-class
-        offsets (``OperatorShards.winsegs`` / ``.segoff``).  Built here
-        from ``winmap`` when both are omitted.
+        offsets (``OperatorShards.winsegs`` / ``.segoff``).  Both are
+        built here from ``winmap`` when ``winsegs`` is omitted;
+        ``winsegs`` without ``segoff`` runs the unsorted-segment kernel.
       smem_budget: kept for the reference's signature.  It sized the TPU
         kernel's scalar-prefetch chunks; on Hopper every CTA loads its
         own descriptors, so it has no effect.
-      scales: quantized-value exponents.  Not ported yet: raises
-        ``NotImplementedError``.
+      blocks_per_call: row-blocks per gather chunk (``staging="gather"``);
+        sized from the 64 MB budget when None.
+      scales: [B, S] int32 per-block dequantization exponents
+        (``core.precision.quantize_block_vals``).  ``vals`` is then
+        packed int8/fp8 and passes through untouched: the fused kernels
+        dequantize inline, the oracle and the gather path widen to f32
+        first.
     """
-    check_supported(staging, dma, scales)
+    check_supported(staging, dma)
     del smem_budget  # no scalar-prefetch memory to budget on Hopper
-    vals_s = vals.to(storage_dtype)
+    quantized = scales is not None
+    vals_s = vals if quantized else vals.to(storage_dtype)
     x_s = x_loc.to(storage_dtype).contiguous()
     b, s, r, k = inds.shape
     buf = winmap.shape[-1]
     f = x_loc.shape[-1]
+
+    if quantized and (use_ref or staging != "fused"):
+        vals_s = dequantize_block_vals(vals, scales, torch.float32)
 
     if use_ref:
         return ref.spmm_ref(
             inds, vals_s, winmap, x_s, compute_dtype=compute_dtype
         ).to(torch.float32)
 
-    if winsegs is None and segoff is None:
-        segs_np, off_np = sort_segments_by_class(
-            winmap_segments(winmap.cpu().numpy()), buf
+    if staging == "fused":
+        if dma == "coalesced" and winsegs is None:
+            segs_np, off_np = sort_segments_by_class(
+                winmap_segments(winmap.cpu().numpy()), buf
+            )
+            winsegs = torch.from_numpy(segs_np).to(winmap.device)
+            segoff = torch.from_numpy(off_np).to(winmap.device)
+        coalesced = dma == "coalesced"
+        out = spmm_block_ell(
+            inds, vals_s, winmap, x_s, compute_dtype=compute_dtype,
+            winsegs=winsegs if coalesced else None,
+            segoff=segoff if coalesced else None, scales=scales,
         )
-        winsegs = torch.from_numpy(segs_np).to(winmap.device)
-        segoff = torch.from_numpy(off_np).to(winmap.device)
-    elif segoff is None:
-        raise NotImplementedError(
-            "winsegs without segoff selects the unsorted-segment kernel, "
-            "not ported yet: ROADMAP.md queue 2, "
-            "_spmm_fused_kernel_coalesced; pass "
-            "sort_segments_by_class(winsegs, buf)"
+        return out.reshape(b * r, f)
+
+    # --- gather staging: windows in device memory, chunked ------------
+    def one_chunk(lo, hi):
+        window = x_s[winmap[lo:hi].long()]  # [bpc, S, BUF, F]
+        return spmm_block_ell_staged(
+            inds[lo:hi], vals_s[lo:hi], window, compute_dtype=compute_dtype
         )
-    out = spmm_block_ell(
-        inds, vals_s, winmap, x_s,
-        compute_dtype=compute_dtype, winsegs=winsegs, segoff=segoff,
+
+    bpc = blocks_per_call or _gather_blocks_per_call(
+        b, s, buf, f, x_s.element_size()
     )
+    out = torch.cat([one_chunk(lo, lo + bpc) for lo in range(0, b, bpc)])
     return out.reshape(b * r, f)

@@ -64,11 +64,6 @@ def main(argv=None):
             "--p-data > 1 is not ported yet: ROADMAP.md queue 1, the "
             "multi-GPU exchange"
         )
-    if args.dma == "per_row":
-        ap.error(
-            "--dma per_row is not ported yet: ROADMAP.md queue 2, "
-            "_spmm_fused_kernel"
-        )
     if args.comm in ("sparse", "hier-sparse"):
         ap.error(
             f"--comm {args.comm} is not ported yet: ROADMAP.md queue 1, "
@@ -85,7 +80,7 @@ def main(argv=None):
         plan,
         cfg=ReconConfig(
             precision=args.precision, comm_mode=args.comm,
-            fuse=args.fuse,
+            fuse=args.fuse, dma=args.dma,
         ),
         device=device,
     )

@@ -1,4 +1,9 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Row 1 (class-sorted segments), row 2 (unsorted segments), row 3 (one
+copy per window row), row 4 (pre-gathered windows) and row 1q (int8 /
+fp8 values with per-block exponents) are each held against their plain
+version, and rows 2-4 and 1q against row 1's kernel, bit for bit.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA
 device is present.  The file imports no JAX, so it runs on the GPU
@@ -12,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import precision as tprec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import xct_spmm as txs
 
@@ -24,7 +30,10 @@ SWEEP = [
     (5, 2, 16, 16, 24, 64, 2),
 ]
 TORCH = {"f64": torch.float64, "f32": torch.float32, "f16": torch.float16,
-         "bf16": torch.bfloat16}
+         "bf16": torch.bfloat16, "int8": torch.int8,
+         "fp8": torch.float8_e4m3fn}
+PAIRS = [("f64", "f64"), ("f32", "f32"), ("f16", "f16"), ("f16", "f32"),
+         ("bf16", "bf16"), ("bf16", "f32")]
 
 
 def _seed(*parts) -> int:
@@ -67,10 +76,7 @@ def _cuda_inputs(shape, storage, dev, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", SWEEP)
-@pytest.mark.parametrize(
-    "pair", [("f64", "f64"), ("f32", "f32"), ("f16", "f16"),
-             ("f16", "f32"), ("bf16", "bf16"), ("bf16", "f32")],
-)
+@pytest.mark.parametrize("pair", PAIRS)
 def test_cuda_kernel_matches_plain(cuda, shape, pair):
     storage, compute = pair
     inds, vals, winmap, x, segs, off = _cuda_inputs(
@@ -91,12 +97,85 @@ def test_cuda_kernel_matches_plain(cuda, shape, pair):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("pair", PAIRS)
+def test_cuda_stagings_match_row1(cuda, shape, pair):
+    """Rows 2, 3 and 4 give row 1's kernel output bit for bit and agree
+    with their plain versions; each launch lands on its own count."""
+    storage, compute = pair
+    ct = TORCH[compute]
+    inds, vals, winmap, x, segs, off = _cuda_inputs(
+        shape, storage, cuda, _seed("stagings", shape, pair)
+    )
+    unsorted = torch.from_numpy(
+        tops.winmap_segments(winmap.cpu().numpy())
+    ).to(cuda)
+    txs.reset_launches()
+    row1 = txs.spmm_block_ell(inds, vals, winmap, x, compute_dtype=ct,
+                              winsegs=segs, segoff=off)
+    row2 = txs.spmm_block_ell(inds, vals, winmap, x, compute_dtype=ct,
+                              winsegs=unsorted)
+    row3 = txs.spmm_block_ell(inds, vals, winmap, x, compute_dtype=ct)
+    window = x[winmap.long()].contiguous()
+    row4 = txs.spmm_block_ell_staged(inds, vals, window, compute_dtype=ct)
+    torch.cuda.synchronize()
+    assert txs.LAUNCHES == dict(sorted=1, sorted_q=0, unsorted=1,
+                                unsorted_q=0, per_row=1, per_row_q=0,
+                                staged=1)
+    assert txs.spmm_block_ell.launches == 3
+    assert txs.spmm_block_ell_staged.launches == 1
+    for out in (row2, row3, row4):
+        assert torch.equal(out, row1)
+    tol = 1e-5 if storage in ("f32", "f64") else 2e-2
+    torch.testing.assert_close(
+        row2, txs.spmm_block_ell_plain(inds, vals, winmap, x,
+                                       compute_dtype=ct, winsegs=unsorted),
+        rtol=tol, atol=tol,
+    )
+    torch.testing.assert_close(
+        row4, txs.spmm_block_ell_staged_plain(inds, vals, window,
+                                              compute_dtype=ct),
+        rtol=tol, atol=tol,
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+@pytest.mark.parametrize("staging", ["sorted", "unsorted", "per_row"])
+def test_cuda_quantized_kernels(cuda, shape, qdtype, staging):
+    """Row 1q on each fused staging equals its plain version and row 1's
+    f32/f32 kernel on the dequantized values with the window pre-rounded
+    to f16, bit for bit."""
+    inds, vals, winmap, x, segs, off = _cuda_inputs(
+        shape, "f32", cuda, _seed("q", shape, qdtype, staging)
+    )
+    q, e = tprec.quantize_block_vals(vals.cpu(), TORCH[qdtype])
+    q, e = q.to(cuda), e.to(cuda)
+    x16 = x.to(torch.float16)
+    unsorted = torch.from_numpy(
+        tops.winmap_segments(winmap.cpu().numpy())
+    ).to(cuda)
+    tables = dict(sorted=dict(winsegs=segs, segoff=off),
+                  unsorted=dict(winsegs=unsorted), per_row={})[staging]
+    txs.reset_launches()
+    out = txs.spmm_block_ell(inds, q, winmap, x16, scales=e, **tables)
+    torch.cuda.synchronize()
+    assert txs.LAUNCHES[staging + "_q"] == 1
+    plain = txs.spmm_block_ell_plain(inds, q, winmap, x16, scales=e,
+                                     winsegs=tables.get("winsegs"))
+    assert torch.equal(out, plain)
+    wide = tprec.dequantize_block_vals(q, e)
+    row1 = txs.spmm_block_ell(inds, wide, winmap, x16.float(),
+                              winsegs=segs, segoff=off)
+    assert torch.equal(out, row1)
+
+
+@pytest.mark.gpu
 def test_cuda_wrapper_checks(cuda):
     inds, vals, winmap, x, segs, off = _cuda_inputs(
         SWEEP[1], "f32", cuda, 0
     )
-    with pytest.raises(ValueError, match="winsegs"):
-        txs.spmm_block_ell(inds, vals, winmap, x)
     with pytest.raises(ValueError, match="no kernel"):
         txs.spmm_block_ell(inds, vals, winmap, x,
                            compute_dtype=torch.float16,
@@ -104,6 +183,17 @@ def test_cuda_wrapper_checks(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         txs.spmm_block_ell(inds, vals, winmap, x.t().contiguous().t(),
                            winsegs=segs, segoff=off)
+    # scales select the quantized kernels, which take int8 / fp8 values
+    scales = torch.zeros(inds.shape[:2], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="quantized"):
+        txs.spmm_block_ell(inds, vals, winmap, x, scales=scales,
+                           winsegs=segs, segoff=off)
+    q = vals.to(torch.int8)
+    with pytest.raises(ValueError, match="scales"):
+        txs.spmm_block_ell(inds, q, winmap, x.half(), winsegs=segs,
+                           segoff=off)
+    with pytest.raises(ValueError, match="window"):
+        txs.spmm_block_ell_staged(inds, vals, x)
     # a window too large for one CTA names BUF and F
     big = torch.zeros((1, 1, 4000), dtype=torch.int32, device=cuda)
     bsegs, boff = (
@@ -119,10 +209,14 @@ def test_cuda_wrapper_checks(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("precision", ["single", "mixed", "double"])
-def test_cuda_reconstructor_matches_cpu(cuda, precision):
-    """The whole solve on the card goes through the kernel and agrees
-    with the same solve on the CPU (plain version)."""
+@pytest.mark.parametrize(
+    "precision,extra",
+    [("single", {}), ("mixed", {}), ("double", {}), ("q8", {}), ("fp8", {}),
+     ("mixed", {"dma": "per_row"}), ("mixed", {"staging": "gather"})],
+)
+def test_cuda_reconstructor_matches_cpu(cuda, precision, extra):
+    """The whole solve on the card goes through the path's kernel and
+    agrees with the same solve on the CPU (plain versions)."""
     from repro_torch.core.geometry import XCTGeometry, build_system_matrix
     from repro_torch.core.partition import PartitionConfig, build_plan
     from repro_torch.core.recon import ReconConfig, Reconstructor
@@ -134,13 +228,22 @@ def test_cuda_reconstructor_matches_cpu(cuda, precision):
                                            nnz_per_stage=16), a=a)
     x_true = phantom_slices(32, 4)
     y = (a @ x_true).astype(np.float32)
-    cfg = ReconConfig(precision=precision, comm_mode="rs", fuse=2)
-    before = txs.spmm_block_ell.launches
+    cfg = ReconConfig(precision=precision, comm_mode="rs", fuse=2, **extra)
+    txs.reset_launches()
     xg, rg = Reconstructor(plan, cfg=cfg).reconstruct(y, iters=5)
-    assert txs.spmm_block_ell.launches - before == 2 * (5 + 1) * 2
+    applications = 2 * (5 + 1) * 2
+    if extra.get("staging") == "gather":
+        assert txs.spmm_block_ell_staged.launches >= applications
+        assert txs.spmm_block_ell.launches == 0
+    else:
+        key = ("per_row" if extra.get("dma") == "per_row" else "sorted") + (
+            "_q" if precision in ("q8", "fp8") else ""
+        )
+        assert txs.LAUNCHES[key] == applications
+        assert txs.spmm_block_ell.launches == applications
     xc, rc = Reconstructor(plan, cfg=cfg, device="cpu").reconstruct(
         y, iters=5
     )
-    tol = 1e-4 if precision != "mixed" else 5e-3
+    tol = 1e-4 if precision in ("single", "double") else 5e-3
     np.testing.assert_allclose(xg, xc, rtol=tol, atol=tol * np.abs(xc).max())
     np.testing.assert_allclose(rg, rc, rtol=tol, atol=tol * np.abs(rc).max())

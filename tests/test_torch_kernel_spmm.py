@@ -1,9 +1,14 @@
 """Blocked-ELL SpMM of the PyTorch port against the JAX package.
 
-On the CPU the port's ``spmm_block_ell`` runs its plain version, held
-here against the JAX Pallas kernel (interpret mode, as the JAX tests run
-it) with the reference tolerances.  The CUDA kernel itself is held
-against the plain version in ``test_torch_kernel_gpu.py``."""
+On the CPU the port's ``spmm_block_ell`` / ``spmm_block_ell_staged`` run
+their plain versions, held here against the JAX Pallas kernels
+(interpret mode, as the JAX tests run them) with the reference
+tolerances: the class-sorted (row 1), unsorted-segment (row 2), per-row
+(row 3) and pre-gathered window (row 4) kernels, and the quantized form
+(row 1q) of the first three.  The port's own contract -- every staging
+gives row 1's bits, and the quantized form gives the bits of the float
+path on the dequantized values -- is pinned here on the plain versions
+and in ``test_torch_kernel_gpu.py`` on the CUDA kernels."""
 import zlib
 
 import jax.numpy as jnp
@@ -11,9 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import precision as jprec
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.xct_spmm import spmm_block_ell as jax_spmm
+from repro.kernels.xct_spmm import spmm_block_ell_staged as jax_staged
+from repro_torch.core import precision as tprec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import xct_spmm as txs
@@ -27,8 +35,11 @@ SWEEP = [
     (2, 3, 8, 32, 40, 96, 16),
     (5, 2, 16, 16, 24, 64, 2),
 ]
-JNP = {"f32": jnp.float32, "f16": jnp.float16, "bf16": jnp.bfloat16}
-TORCH = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16}
+JNP = {"f32": jnp.float32, "f16": jnp.float16, "bf16": jnp.bfloat16,
+       "int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
+TORCH = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16,
+         "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+PAIRS = [("f32", "f32"), ("f16", "f32"), ("bf16", "bf16")]
 
 
 def _seed(*parts) -> int:
@@ -162,21 +173,29 @@ def test_apply_operator_matches_jax_on_plan_shards(small_system, name, pair):
 
 
 def test_unported_modes_raise_without_fallback():
+    """The modes that raised before the port had their kernels now run
+    and agree with the JAX kernels; unknown modes still raise."""
     rng = np.random.default_rng(0)
-    inds, vals, winmap, x = (
-        torch.from_numpy(a) for a in _random_ell(rng, *SWEEP[1])
-    )
-    for kw, exc in [
-        (dict(staging="gather"), NotImplementedError),
-        (dict(dma="per_row"), NotImplementedError),
-        (dict(scales=torch.zeros((2, 2), dtype=torch.int32)),
-         NotImplementedError),
-        (dict(staging="bogus"), ValueError),
-        (dict(dma="bogus"), ValueError),
-        (dict(winsegs=torch.zeros((2, 2, 8, 3), dtype=torch.int32)),
-         NotImplementedError),
+    arrays = _random_ell(rng, *SWEEP[1])
+    inds, vals, winmap, x = (torch.from_numpy(a) for a in arrays)
+    j_args = [jnp.asarray(a) for a in arrays]
+    q, e = tprec.quantize_block_vals(vals, torch.int8)
+    jq, je = jprec.quantize_block_vals(j_args[1], jnp.int8)
+    segs = tops.winmap_segments(arrays[2])
+    for kw, jkw, tv, jv in [
+        (dict(staging="gather"), dict(staging="gather"), vals, j_args[1]),
+        (dict(dma="per_row"), dict(dma="per_row"), vals, j_args[1]),
+        (dict(scales=e), dict(scales=je), q, jq),
+        (dict(winsegs=torch.from_numpy(segs)),
+         dict(winsegs=jnp.asarray(segs)), vals, j_args[1]),
     ]:
-        with pytest.raises(exc):
+        out = tops.apply_operator(inds, tv, winmap, x, **kw)
+        ref = jops.apply_operator(j_args[0], jv, j_args[2], j_args[3], **jkw)
+        tol = _tol("f16", "f32")  # apply_operator's default pair
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   rtol=tol, atol=tol)
+    for kw in (dict(staging="bogus"), dict(dma="bogus")):
+        with pytest.raises(ValueError):
             tops.apply_operator(inds, vals, winmap, x, **kw)
 
 
@@ -186,9 +205,18 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
         torch.from_numpy(a) for a in _random_ell(rng, *SWEEP[3])
     )
     before = txs.spmm_block_ell.launches
+    counts = dict(txs.LAUNCHES)
     out = txs.spmm_block_ell(inds, vals, winmap, x)
     assert txs.spmm_block_ell.launches == before
     assert torch.equal(out, txs.spmm_block_ell_plain(inds, vals, winmap, x))
+    window = x[winmap.long()]
+    staged_before = txs.spmm_block_ell_staged.launches
+    out = txs.spmm_block_ell_staged(inds, vals, window)
+    assert txs.spmm_block_ell_staged.launches == staged_before
+    assert txs.LAUNCHES == counts
+    txs.reset_launches()
+    assert set(txs.LAUNCHES.values()) == {0}
+    assert txs.spmm_block_ell.launches == 0
 
 
 def test_shared_memory_footprint():
@@ -199,3 +227,282 @@ def test_shared_memory_footprint():
     # odd sizes are padded to 16-byte boundaries
     assert txs.smem_bytes(8, 8, 16, 1, 4) == 64 + 256 + 128
     assert txs.smem_bytes(1, 1, 3, 1, 2) == 16 * 3
+    # the quantized kernels: f16 window, 1-byte values
+    assert txs.smem_bytes(32, 32, 776, 16, 2, 1) == 776 * 16 * 2 + 1024 + 2048
+    # the staged kernel under q8/fp8: f16 window, f32 values
+    assert txs.smem_bytes(32, 32, 416, 16, 2, 4) == 416 * 16 * 2 + 4096 + 2048
+
+
+def test_kernel_entries_cover_every_policy_and_path():
+    """One CUDA entry per (staging, vals, window, compute) a path can
+    reach: the six float pairs on all four stagings, int8/fp8 values on
+    the three fused ones, and f32 values on f16 windows for the gather
+    path of the quantized tier."""
+    entries = set(txs.ENTRIES)
+    assert len(entries) == len(txs.ENTRIES) == 31
+    for st, ct in txs.KERNEL_PAIRS:
+        for staging in ("sorted", "unsorted", "per_row", "staged"):
+            assert (staging, st, st, ct) in entries
+    for q in (torch.int8, torch.float8_e4m3fn):
+        for staging in ("sorted", "unsorted", "per_row"):
+            assert (staging, q, torch.float16, torch.float32) in entries
+        assert ("staged", q, torch.float16, torch.float32) not in entries
+    assert ("staged", torch.float32, torch.float16, torch.float32) in entries
+    assert set(txs.LAUNCHES) == {
+        "sorted", "sorted_q", "unsorted", "unsorted_q", "per_row",
+        "per_row_q", "staged",
+    }
+    # every entry is defined in the CUDA source: the staged ones by name,
+    # the fused ones by one XCT_SPMM_FUSED(<staging>, ...) line each
+    src = txs._SOURCE.read_text()
+    for staging, v, w, c in txs.ENTRIES:
+        types = "_".join(txs._NAMES[t] for t in (v, w, c))
+        if staging == "staged":
+            assert f"xct_spmm_staged_{types}," in src
+        else:
+            assert f"xct_spmm_##TAG##_{types}," in src
+            assert f"XCT_SPMM_FUSED({staging}," in src
+
+
+def _fused_tables(winmap, staging, buf):
+    """(winsegs, segoff) numpy tables selecting one fused kernel."""
+    if staging == "per_row":
+        return None, None
+    segs = tops.winmap_segments(winmap)
+    if staging == "unsorted":
+        return segs, None
+    return tops.sort_segments_by_class(segs, buf)
+
+
+def _as(t, a, dtype=None):
+    """numpy -> torch (t=True) or jnp (t=False); None stays None."""
+    if a is None:
+        return None
+    if t:
+        out = torch.from_numpy(a)
+        return out if dtype is None else out.to(TORCH[dtype])
+    out = jnp.asarray(a)
+    return out if dtype is None else out.astype(JNP[dtype])
+
+
+@pytest.mark.parametrize("shape", SWEEP[::2])
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("staging", ["unsorted", "per_row"])
+def test_fused_stagings_match_jax_kernel(shape, pair, staging):
+    """Rows 2 and 3: the unsorted-segment and per-row kernels' plain
+    versions against the JAX kernels they stand for."""
+    b, s, r, k, buf, c, f = shape
+    storage, compute = pair
+    rng = np.random.default_rng(_seed(staging, shape, pair))
+    inds, vals, winmap, x = _random_ell(rng, b, s, r, k, buf, c, f)
+    segs, off = _fused_tables(winmap, staging, buf)
+    outs = []
+    for t in (True, False):
+        fn = txs.spmm_block_ell if t else jax_spmm
+        cdt = (TORCH if t else JNP)[compute]
+        outs.append(np.asarray(fn(
+            _as(t, inds), _as(t, vals, storage), _as(t, winmap),
+            _as(t, x, storage), compute_dtype=cdt, winsegs=_as(t, segs),
+            segoff=_as(t, off),
+        ), np.float32))
+    tol = _tol(storage, compute)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", SWEEP[1:3])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+@pytest.mark.parametrize("staging", ["sorted", "unsorted", "per_row"])
+def test_quantized_plain_matches_jax_kernel(shape, qdtype, staging):
+    """Row 1q on each fused staging: packed values and per-block
+    exponents from both packages (bit-equal) through the port's plain
+    version and the JAX kernel with ``scales``, f16 window, f32 compute."""
+    b, s, r, k, buf, c, f = shape
+    rng = np.random.default_rng(_seed("q", shape, qdtype, staging))
+    inds, vals, winmap, x = _random_ell(rng, b, s, r, k, buf, c, f)
+    vals = vals * np.exp2(rng.integers(-6, 7, size=(b, s, 1, 1))).astype(
+        np.float32
+    )
+    segs, off = _fused_tables(winmap, staging, buf)
+    q, e = tprec.quantize_block_vals(torch.from_numpy(vals), TORCH[qdtype])
+    jq, je = jprec.quantize_block_vals(jnp.asarray(vals), JNP[qdtype])
+    out = txs.spmm_block_ell(
+        _as(True, inds), q, _as(True, winmap), _as(True, x, "f16"),
+        winsegs=_as(True, segs), segoff=_as(True, off), scales=e,
+    )
+    ref = jax_spmm(
+        _as(False, inds), jq, _as(False, winmap), _as(False, x, "f16"),
+        winsegs=_as(False, segs), segoff=_as(False, off), scales=je,
+    )
+    tol = _tol("f16", "f32")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=tol,
+                               atol=tol)
+    # the port's contract: the float path on the dequantized values, with
+    # the window pre-rounded to f16, gives the same bits
+    wide = tprec.dequantize_block_vals(q, e)
+    x16 = _as(True, x, "f16").to(torch.float32)
+    same = txs.spmm_block_ell_plain(_as(True, inds), wide, _as(True, winmap),
+                                    x16)
+    assert torch.equal(out, same)
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("pair", PAIRS)
+def test_staged_plain_matches_jax_kernel(shape, pair):
+    """Row 4: the pre-gathered window kernel's plain version against
+    ``spmm_block_ell_staged`` on the same gathered windows."""
+    b, s, r, k, buf, c, f = shape
+    storage, compute = pair
+    rng = np.random.default_rng(_seed("staged", shape, pair))
+    inds, vals, winmap, x = _random_ell(rng, b, s, r, k, buf, c, f)
+    window = x[winmap]  # [B, S, BUF, F]
+    out = txs.spmm_block_ell_staged(
+        _as(True, inds), _as(True, vals, storage), _as(True, window, storage),
+        compute_dtype=TORCH[compute],
+    )
+    assert out.dtype == torch.float32 and out.shape == (b, r, f)
+    ref = jax_staged(
+        _as(False, inds), _as(False, vals, storage),
+        _as(False, window, storage), compute_dtype=JNP[compute],
+    )
+    tol = _tol(storage, compute)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_gather_apply_operator_matches_jax(chunked, quantized):
+    """``staging="gather"``: windows gathered into memory, chunked over
+    row-blocks (3 chunks of 2) or in one call, against the reference's
+    gather path; q8 values are widened to f32 first, as it does."""
+    b, s, r, k, buf, c, f = 6, 2, 8, 8, 16, 64, 4
+    rng = np.random.default_rng(_seed("gather", chunked, quantized))
+    inds, vals, winmap, x = _random_ell(rng, b, s, r, k, buf, c, f)
+    kw = dict(staging="gather", blocks_per_call=2 if chunked else None)
+    tv, jv = torch.from_numpy(vals), jnp.asarray(vals)
+    if quantized:
+        tv, te = tprec.quantize_block_vals(tv, torch.int8)
+        jv, je = jprec.quantize_block_vals(jv, jnp.int8)
+    out = tops.apply_operator(
+        _as(True, inds), tv, _as(True, winmap), _as(True, x),
+        scales=te if quantized else None, **kw,
+    )
+    ref = jops.apply_operator(
+        _as(False, inds), jv, _as(False, winmap), _as(False, x),
+        scales=je if quantized else None, **kw,
+    )
+    tol = _tol("f16", "f32")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=tol,
+                               atol=tol)
+    # chunking changes nothing, and the fused default gives the same bits
+    other = tops.apply_operator(
+        _as(True, inds), tv, _as(True, winmap), _as(True, x),
+        scales=te if quantized else None, staging="gather",
+        blocks_per_call=None if chunked else 2,
+    )
+    assert torch.equal(other, out)
+    fused = tops.apply_operator(
+        _as(True, inds), tv, _as(True, winmap), _as(True, x),
+        scales=te if quantized else None,
+    )
+    assert torch.equal(fused, out)
+
+
+def test_gather_chunking_follows_the_64mb_budget():
+    """The reference's chunk sizes: the largest divisor of B whose
+    gathered windows fit 64 MB (proj at n=512: 277 chunks of 24)."""
+    assert tops.staged_window_bytes(26, 776, 16, 2) == 26 * 776 * 16 * 2
+    assert tops._gather_blocks_per_call(6648, 26, 776, 16, 2) == 24
+    assert tops._gather_blocks_per_call(8192, 20, 416, 16, 2) == 128
+    assert tops._gather_blocks_per_call(8, 2, 16, 4, 2) == 8
+    assert tops._gather_blocks_per_call(7, 26, 776, 16, 2, budget=1) == 1
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize(
+    "pair", [("f64", "f64"), ("f32", "f32"), ("f16", "f16"), ("f16", "f32"),
+             ("bf16", "bf16"), ("bf16", "f32")],
+)
+def test_stagings_give_row1_bits(shape, pair):
+    """Port-internal: with the same window contents, the unsorted
+    (row 2), per-row (row 3) and pre-gathered (row 4) plain versions give
+    the class-sorted kernel's plain output bit for bit, for all six
+    pairs; so does the quantized form against the float path on the
+    dequantized values."""
+    b, s, r, k, buf, c, f = shape
+    storage, compute = pair
+    st = {"f64": torch.float64, **TORCH}[storage]
+    ct = {"f64": torch.float64, **TORCH}[compute]
+    rng = np.random.default_rng(_seed("bits", shape, pair))
+    inds, vals, winmap, x = (
+        torch.from_numpy(a) for a in _random_ell(rng, b, s, r, k, buf, c, f)
+    )
+    vals, x = vals.to(st), x.to(st)
+    row1 = txs.spmm_block_ell_plain(inds, vals, winmap, x, compute_dtype=ct)
+    segs = torch.from_numpy(tops.winmap_segments(winmap.numpy()))
+    row2 = txs.spmm_block_ell(inds, vals, winmap, x, compute_dtype=ct,
+                              winsegs=segs)
+    row4 = txs.spmm_block_ell_staged(inds, vals, x[winmap.long()],
+                                     compute_dtype=ct)
+    assert torch.equal(row2, row1)
+    assert torch.equal(row4, row1)
+    if pair == ("f16", "f32"):
+        q, e = tprec.quantize_block_vals(vals.float(), torch.float8_e4m3fn)
+        row1q = txs.spmm_block_ell(inds, q, winmap, x, scales=e)
+        wide = tprec.dequantize_block_vals(q, e)
+        assert torch.equal(row1q, txs.spmm_block_ell_plain(
+            inds, wide, winmap, x.float()))
+
+
+def test_rows_from_segments_reads_the_table():
+    """Row 2's plain staging rebuilds the winmap from an unsorted table
+    (and from its class-sorted permutation); pad slots copy nothing."""
+    rng = np.random.default_rng(4)
+    wm = np.sort(rng.choice(500, size=(3, 2, 40), replace=True), axis=-1)
+    wm = wm.astype(np.int32)
+    segs = tops.winmap_segments(wm, pad_to=16)
+    assert (segs[..., 2] == 0).any()  # pad slots present
+    srt, _ = tops.sort_segments_by_class(segs, 40)
+    for table in (segs, srt):
+        for si in range(2):
+            rows = txs._rows_from_segments(torch.from_numpy(table[:, si]), 40)
+            np.testing.assert_array_equal(rows.numpy(), wm[:, si])
+
+
+@pytest.mark.parametrize("name", ["proj", "back"])
+@pytest.mark.parametrize("mode", ["unsorted", "per_row", "gather", "q8",
+                                  "fp8"])
+def test_apply_operator_modes_match_jax_on_plan_shards(small_system, name,
+                                                       mode):
+    """Every new path on the small plan's real shards (long Hilbert runs,
+    padded slots) at the mixed pair, against the reference."""
+    _, _, plan = small_system
+    op = getattr(plan, name)
+    x = np.random.default_rng(_seed(name, mode)).normal(
+        size=(op.n_cols_pad, 4)
+    ).astype(np.float32)
+    tvals, jvals = torch.from_numpy(op.vals[0]), jnp.asarray(op.vals[0])
+    tkw, jkw = {}, {}
+    if mode == "unsorted":
+        segs = tops.winmap_segments(op.winmap[0])
+        tkw["winsegs"], jkw["winsegs"] = torch.from_numpy(segs), segs
+    elif mode == "per_row":
+        tkw["dma"] = jkw["dma"] = "per_row"
+    elif mode == "gather":
+        tkw["staging"] = jkw["staging"] = "gather"
+    else:
+        tvals, tkw["scales"] = tprec.quantize_block_vals(tvals, TORCH[
+            "int8" if mode == "q8" else "fp8"])
+        jvals, jkw["scales"] = jprec.quantize_block_vals(jvals, JNP[
+            "int8" if mode == "q8" else "fp8"])
+    out = tops.apply_operator(
+        torch.from_numpy(op.inds[0]), tvals, torch.from_numpy(op.winmap[0]),
+        torch.from_numpy(x), **tkw,
+    )
+    ref = jops.apply_operator(
+        jnp.asarray(op.inds[0]), jvals, jnp.asarray(op.winmap[0]),
+        jnp.asarray(x), **jkw,
+    )
+    tol = _tol("f16", "f32")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=tol,
+                               atol=tol)

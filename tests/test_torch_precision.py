@@ -1,5 +1,6 @@
 """Precision policies of the PyTorch port against the JAX package:
-``adaptive_scale``, ``adaptive_scale_cols`` and ``qcast`` give the same
+``adaptive_scale``, ``adaptive_scale_cols``, ``qcast`` and the quantized
+tier's ``quantize_block_vals`` / ``dequantize_block_vals`` give the same
 bits, edge values included."""
 import jax.numpy as jnp
 import numpy as np
@@ -31,15 +32,30 @@ def _bits(a):
     return np.asarray(a, np.float32).view(np.int32)
 
 
+def _name(dtype):
+    """torch and jnp dtypes under one spelling (``float8_e4m3fn``...)."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).split(".")[-1]
+    return np.dtype(dtype).name
+
+
 def test_policies_mirror_reference():
-    for name in ("double", "single", "half", "mixed", "bf16", "mixed_bf16"):
+    assert sorted(tp.POLICIES) == sorted(jp.POLICIES)
+    for name in tp.POLICIES:
         t, j = tp.get_policy(name), jp.get_policy(name)
         assert t.name == j.name and t.adaptive == j.adaptive
         assert t.comm_bytes == j.comm_bytes
         assert t.vals_bytes == j.vals_bytes
-        assert str(t.storage).split(".")[-1] == np.dtype(j.storage).name
-        assert str(t.compute).split(".")[-1] == np.dtype(j.compute).name
+        assert t.quantized == j.quantized
+        assert _name(t.vals_dtype) == _name(j.vals_dtype)
+        assert _name(t.storage) == _name(j.storage)
+        assert _name(t.compute) == _name(j.compute)
     assert tp.ALIASES == jp.ALIASES
+    assert tp.get_policy("int8") is tp.get_policy("q8")
+    assert tp.get_policy("q8").vals_dtype == torch.int8
+    assert tp.get_policy("fp8").vals_dtype == torch.float8_e4m3fn
+    assert tp.get_policy("q8").vals_bytes == 1
+    assert not tp.get_policy("mixed").quantized
     assert tp.get_policy("f32") is tp.get_policy("single")
     assert tp.get_policy("f64") is tp.get_policy("double")
     assert tp.get_policy("f16") is tp.get_policy("half")
@@ -48,9 +64,14 @@ def test_policies_mirror_reference():
 
 
 def test_unported_and_unknown_policies_raise():
+    """The quantized rungs, once unported, resolve to the reference's
+    policies; an unknown name still raises, listing every policy."""
     for name in ("q8", "int8", "fp8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tp.get_policy(name)
+        pol = tp.get_policy(name)
+        ref = jp.get_policy(name)
+        assert pol.quantized and pol.name == ref.name
+        assert pol.storage == torch.float16 and pol.compute == torch.float32
+        assert _name(pol.vals_dtype) == _name(ref.vals_dtype)
     with pytest.raises(KeyError) as ei:
         tp.get_policy("fp32")
     for name in sorted(tp.POLICIES):
@@ -140,3 +161,87 @@ def test_qcast_roundtrip_protects_small_values():
     q, inv = tp.qcast(x, torch.float16, adaptive=True)
     np.testing.assert_allclose((q.float() * inv).numpy(), x.numpy(),
                                rtol=1e-3)
+
+
+def _quant_cases(rng):
+    """[N, 4, 64] blocks: random magnitudes over 40 octaves, plus zero,
+    subnormal and tiny blocks and blocks whose maximum is exactly
+    ``127 * 2**k`` or ``240 * 2**k`` or a float32 neighbour of it (the
+    integer-log2 edges of the floor)."""
+    n_rand = 600
+    rand = (rng.random((n_rand, 4, 64)) - 0.5) * np.exp2(
+        rng.integers(-20, 20, size=(n_rand, 1, 1))
+    )
+    edges = []
+    for target in (127.0, 240.0):
+        for kk in range(-30, 31, 3):
+            for ulp in (-1, 0, 1):
+                top = np.float32(target * 2.0 ** kk).view(np.int32) + ulp
+                blk = rng.random((4, 64)) * np.float32(target * 2.0 ** kk)
+                blk.flat[rng.integers(0, 256)] = top.view(np.float32)
+                edges.append(blk)
+    special = np.zeros((4, 4, 64))
+    special[1] = 1e-45  # subnormal maximum
+    special[2] = F32_TINY * rng.random((4, 64))
+    special[3] = -rng.random((4, 64))  # negative maximum
+    return np.concatenate([rand, np.stack(edges), special]).astype(np.float32)
+
+
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_quantize_block_vals_bit_equal(qdtype):
+    tdt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[qdtype]
+    jdt = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn}[qdtype]
+    v = _quant_cases(np.random.default_rng(5))
+    # the shards' [B, S, R, K] layout: every (b, s) is a block
+    v = v.reshape(-1, 2, 4, 64)
+    q, e = tp.quantize_block_vals(torch.from_numpy(v), tdt)
+    jq, je = jp.quantize_block_vals(jnp.asarray(v), jdt)
+    assert q.dtype == tdt and q.shape == v.shape
+    assert e.dtype == torch.int32 and e.shape == v.shape[:2]
+    np.testing.assert_array_equal(e.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(
+        q.view(torch.uint8).numpy(), np.asarray(jq).view(np.uint8)
+    )
+    d = tp.dequantize_block_vals(q, e)
+    jd = jp.dequantize_block_vals(jq, je)
+    np.testing.assert_array_equal(_bits(d.numpy()), _bits(jd))
+    # nothing clips: the grid error stays within half a step of the block
+    step = np.exp2(e.numpy().astype(np.float64))[..., None, None]
+    err = np.abs(d.numpy().astype(np.float64) - v)
+    if qdtype == "int8":
+        assert (err <= 0.5 * step + 1e-30).all()
+    else:  # e4m3: 3 mantissa bits, relative half-step 2**-4 above 2**-6
+        assert (err <= np.maximum(np.abs(v) * 2.0 ** -4, 2.0 ** -10 * step)
+                + 1e-30).all()
+
+
+def test_fp8_rounding_at_half_way_points_and_subnormals():
+    """Both frameworks round f32 -> e4m3fn to nearest-even straight from
+    f32: every e4m3 grid midpoint (ties go to the even code), a float32
+    ulp on each side of it, and the subnormal range."""
+    grid = torch.arange(0, 127, dtype=torch.uint8).view(
+        torch.float8_e4m3fn
+    ).to(torch.float32).numpy()  # every finite non-negative e4m3 value
+    mid = ((grid[:-1].astype(np.float64) + grid[1:]) / 2).astype(np.float32)
+    ints = mid.view(np.int32)
+    probes = np.concatenate([
+        mid, (ints - 1).view(np.float32), (ints + 1).view(np.float32),
+        np.linspace(0, 2.0 ** -6, 301, dtype=np.float32),
+    ])
+    probes = np.concatenate([probes, -probes]).astype(np.float32)
+    t = torch.from_numpy(probes).to(torch.float8_e4m3fn).view(torch.uint8)
+    j = np.asarray(jnp.asarray(probes).astype(jnp.float8_e4m3fn)).view(
+        np.uint8
+    )
+    np.testing.assert_array_equal(t.numpy(), j)
+    # ties to even: the midpoint between codes 2n and 2n+1 takes 2n
+    up = torch.from_numpy(mid[::2].copy()).to(torch.float8_e4m3fn)
+    assert (up.view(torch.uint8).numpy() % 2 == 0).all()
+    # through quantize_block_vals, whose scale puts each block's max on 240
+    blk = np.concatenate([np.float32([240.0]), mid[mid < 240]])
+    q, e = tp.quantize_block_vals(torch.from_numpy(blk[None]), torch.float8_e4m3fn)
+    jq, je = jp.quantize_block_vals(jnp.asarray(blk[None]), jnp.float8_e4m3fn)
+    assert int(e) == int(je) == 0
+    np.testing.assert_array_equal(
+        q.view(torch.uint8).numpy(), np.asarray(jq).view(np.uint8)
+    )

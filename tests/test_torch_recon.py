@@ -52,7 +52,8 @@ def test_reconstruction_converges(phantom32, port_plan):
     assert res[-1, 0] < 0.05 * res[0, 0]
 
 
-@pytest.mark.parametrize("precision", ["mixed", "half", "mixed_bf16"])
+@pytest.mark.parametrize("precision",
+                         ["mixed", "half", "mixed_bf16", "q8", "fp8"])
 def test_reduced_precision_tracks_single(phantom32, port_plan, precision):
     x_true, y = phantom32
     errs = {}
@@ -85,19 +86,32 @@ def test_oracle_path_matches_kernel_path(phantom32, port_plan):
 
 
 @pytest.mark.parametrize(
-    "precision,tol",
-    [("single", 1e-4), ("double", 1e-4), ("mixed", 5e-3), ("half", 5e-3),
-     ("bf16", 5e-3), ("mixed_bf16", 5e-3)],
+    "precision,tol,extra",
+    [pytest.param("single", 1e-4, {}, id="single-0.0001"),
+     pytest.param("double", 1e-4, {}, id="double-0.0001"),
+     pytest.param("mixed", 5e-3, {}, id="mixed-0.005"),
+     pytest.param("half", 5e-3, {}, id="half-0.005"),
+     pytest.param("bf16", 5e-3, {}, id="bf16-0.005"),
+     pytest.param("mixed_bf16", 5e-3, {}, id="mixed_bf16-0.005"),
+     pytest.param("q8", 5e-3, {}, id="q8-0.005"),
+     pytest.param("fp8", 5e-3, {}, id="fp8-0.005"),
+     pytest.param("mixed", 5e-3, {"staging": "gather"},
+                  id="mixed-gather-0.005"),
+     pytest.param("mixed", 5e-3, {"dma": "per_row"},
+                  id="mixed-per_row-0.005")],
 )
 def test_port_matches_jax_reconstructor(small_system, phantom32, port_plan,
-                                        precision, tol):
+                                        precision, tol, extra):
     """Same plan, same sinogram, 5 iterations.  ``double`` is true f64 in
     the port and f32 in the JAX package (no x64): f32 tolerance."""
     _, _, plan = small_system
     _, y = phantom32
-    x, res = _rec(port_plan, precision=precision).reconstruct(y, iters=5)
+    x, res = _rec(port_plan, precision=precision, **extra).reconstruct(
+        y, iters=5
+    )
     jrec = JaxReconstructor(
-        plan, cfg=JaxConfig(precision=precision, comm_mode="rs", fuse=2)
+        plan, cfg=JaxConfig(precision=precision, comm_mode="rs", fuse=2,
+                            **extra)
     )
     jx, jres = jrec.reconstruct(y, iters=5)
     jx = np.asarray(jx)
@@ -105,6 +119,42 @@ def test_port_matches_jax_reconstructor(small_system, phantom32, port_plan,
                                atol=tol * np.abs(jx).max())
     np.testing.assert_allclose(res, np.asarray(jres), rtol=tol,
                                atol=tol * np.abs(jres).max())
+
+
+@pytest.mark.parametrize("precision", ["q8", "fp8"])
+def test_bound_quantized_arrays_match_jax(small_system, port_plan,
+                                          precision):
+    """The packed values and exponents bound at init are the reference's
+    byte for byte (``Reconstructor._arrays``), for both operators."""
+    _, _, plan = small_system
+    rec = _rec(port_plan, precision=precision)
+    jrec = JaxReconstructor(
+        plan, cfg=JaxConfig(precision=precision, comm_mode="rs", fuse=2)
+    )
+    for name in ("proj", "back"):
+        vals = rec._arrays[f"{name}_vals"]
+        scale = rec._arrays[f"{name}_vscale"]
+        assert vals.dtype == rec.policy.vals_dtype
+        assert scale.dtype == torch.int32
+        jvals = np.asarray(jrec._arrays[f"{name}_vals"])[0]
+        jscale = np.asarray(jrec._arrays[f"{name}_vscale"])[0]
+        assert vals.shape == jvals.shape and scale.shape == jscale.shape
+        np.testing.assert_array_equal(vals.view(torch.uint8).numpy(),
+                                      jvals.view(np.uint8))
+        np.testing.assert_array_equal(scale.numpy(), jscale)
+
+
+def test_staging_modes_give_the_default_bits(phantom32, port_plan):
+    """``dma="per_row"``, ``staging="gather"`` and the default stage the
+    same windows, so the solves agree bit for bit (q8 included)."""
+    _, y = phantom32
+    for precision in ("mixed", "q8"):
+        base = _rec(port_plan, precision=precision).reconstruct(y, iters=3)
+        for extra in ({"dma": "per_row"}, {"staging": "gather"}):
+            x, res = _rec(port_plan, precision=precision,
+                          **extra).reconstruct(y, iters=3)
+            np.testing.assert_array_equal(x, base[0])
+            np.testing.assert_array_equal(res, base[1])
 
 
 def test_stage_sino_and_x0(phantom32, port_plan):
@@ -131,14 +181,24 @@ def test_nonfinite_solve_raises(phantom32, port_plan):
         _rec(port_plan, precision="single").reconstruct(bad, iters=2)
 
 
-def test_unported_configurations_raise(small_system, port_plan):
+def test_unported_configurations_raise(small_system, phantom32, port_plan):
+    """What the port still lacks raises, naming ROADMAP.md; the staging,
+    dma and quantized configurations that once raised now solve."""
     geo, a, _ = small_system
+    x_true, y = phantom32
     for kw in (dict(comm_mode="sparse"), dict(comm_mode="hier-sparse"),
-               dict(wire="q8"), dict(staging="gather"), dict(dma="per_row")):
+               dict(wire="q8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _rec(port_plan, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _rec(port_plan, precision="q8")
+    for kw in (dict(staging="gather"), dict(dma="per_row"),
+               dict(precision="q8")):
+        rec = _rec(port_plan, **kw)
+        x, res = rec.reconstruct(y, iters=8)
+        assert x.shape == x_true.shape and np.isfinite(x).all()
+        assert (res[-1] < res[0]).all()
+    for kw in (dict(staging="bogus"), dict(dma="bogus")):
+        with pytest.raises(ValueError, match="unknown"):
+            _rec(port_plan, **kw)
     multi = tpart.build_plan(
         tgeo.XCTGeometry(geo.n, geo.n_angles),
         tpart.PartitionConfig(n_data=2, tile=4, rows_per_block=16,
@@ -187,7 +247,7 @@ def test_cli_on_cpu(capsys):
 @pytest.mark.parametrize(
     "argv",
     [["--stream"], ["--trace", "t.json"], ["--tune-dir", "d"],
-     ["--p-data", "2"], ["--dma", "per_row"], ["--comm", "sparse"]],
+     ["--p-data", "2"], ["--comm", "hier-sparse"], ["--comm", "sparse"]],
 )
 def test_cli_rejects_unported_options(argv, capsys):
     from repro_torch.launch import recon as cli
@@ -196,3 +256,27 @@ def test_cli_rejects_unported_options(argv, capsys):
         cli.main(["--device", "cpu"] + argv)
     assert ei.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_cli_passes_precision_and_dma(monkeypatch, capsys):
+    """``--precision q8 --dma per_row`` reach the solve's ReconConfig."""
+    from repro_torch.launch import recon as cli
+
+    built = []
+
+    class Recording(Reconstructor):
+        def __init__(self, plan, cfg, device=None):
+            built.append(cfg)
+            super().__init__(plan, cfg, device)
+
+    monkeypatch.setattr(cli, "Reconstructor", Recording)
+    x, res = cli.main(
+        ["--n", "32", "--angles", "48", "--slices", "4", "--iters", "5",
+         "--fuse", "2", "--precision", "q8", "--dma", "per_row",
+         "--device", "cpu"]
+    )
+    (cfg,) = built
+    assert cfg.precision == "q8" and cfg.dma == "per_row"
+    assert x.shape == (1024, 4) and np.isfinite(x).all()
+    assert res[-1, 0] < res[0, 0]
+    assert "5 CG iters on 4 slices" in capsys.readouterr().out
