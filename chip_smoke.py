@@ -20,10 +20,14 @@ Phases, each fatal on failure:
    ``staging="gather"`` that must equal the default solve bit for bit;
    one ``apply_operator`` per shard on unsorted segment tables; with
    every kernel's launch count read around the phase;
-4. profiled mixed and q8 solves: device time by kernel and the idle share;
+4. profiled mixed and q8 solves: device time by kernel and the idle
+   share (run after phase 5: a profiler session slows later launches);
 5. per-application times of every kernel, its plain version and
    ``torch.sparse.mm`` (cuSPARSE, used here only as a yardstick) beside
-   the memory-bandwidth bound; the solves' wall time and peak memory.
+   the memory-bandwidth bound; for row 1 also its two ring-filling
+   routes and its time with no compute and with no copies (timing
+   probes); for row 4 the device time of its chunked launches
+   (``torch.profiler``); the solves' wall time and peak memory.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -46,10 +50,18 @@ SWEEP = [  # (B, S, R, K, BUF, C, F): the kernel test sweep
     (3, 1, 32, 16, 64, 256, 8),
     (2, 3, 8, 32, 40, 96, 16),
     (5, 2, 16, 16, 24, 64, 2),
+    # S=7 against 4 stages in flight and clusters of 2-7 CTAs; K=12 and
+    # F=3 (no 16-byte rows); R=32 with F=64
+    (3, 7, 32, 32, 64, 256, 16),
+    (2, 9, 16, 12, 24, 64, 3),
+    (3, 5, 32, 16, 48, 128, 64),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 AB_ITERS = 5  # iterations of the staging A/B solves
+# the kernels redesigned for Hopper (rows 1, 1q and 4), tagged in the
+# kernels line with the change that redesigned them
+REDESIGNED = {"row1": "PR 13", "row1q": "PR 13", "row4": "PR 13"}
 # the five kernels: (key, name, replaces) -- the Pallas kernel body each
 # replaces in src/repro/kernels/xct_spmm.py
 KERNELS = (
@@ -249,6 +261,13 @@ def check_shards(plan, device):
     for name in ("proj", "back"):
         op = getattr(plan, name)
         t = operator_tensors(op, device)
+        _, b, s, r, k = op.inds.shape
+        buf = op.winmap.shape[-1]
+        for staging in ("sorted", "staged"):
+            for storage, _ in xs.KERNEL_PAIRS[:3]:
+                sb = torch.empty((), dtype=storage).element_size()
+                log(f"geometry {name} {staging} {sb} B window values: "
+                    f"{xs.launch_geometry(staging, s, r, k, buf, FUSE, sb)}")
         unsorted = unsorted_table(t["winmap"], device)
         x = torch.from_numpy(
             np.random.default_rng(7).normal(
@@ -502,6 +521,30 @@ def main_path(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS,
     return runs
 
 
+def dev_us(e):
+    """Device time of one ``key_averages()`` row, in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0
+    )
+
+
+def device_ms(fn, name="xct_spmm_kernel"):
+    """Device time of the kernels named ``name`` in one call of ``fn``
+    (torch.profiler): the kernels' own time, without the host's gaps
+    between launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key) / 1e3
+
+
 def profile_solve(plan, a, device, precision="mixed", slices=SLICES,
                   fuse=FUSE, iters=ITERS):
     """Phase 4: where a solve's device time goes (torch.profiler).
@@ -527,11 +570,6 @@ def profile_solve(plan, a, device, precision="mixed", slices=SLICES,
         rec.reconstruct(staged, iters=iters)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0
-        )
 
     # device-side events only (kernels, copies): an operator's row
     # repeats the time of the kernels it launched
@@ -616,6 +654,7 @@ def times(plan, a, device):
 
     out = {key: {} for key, _, _ in KERNELS}
     mats = {"proj": a, "back": sp.csr_matrix(a.T)}
+    profiled = []
     f16, f32 = torch.float16, torch.float32
 
     def record(key, variant, name, k_ms, p_ms, lib_ms, bnd, **more):
@@ -666,8 +705,46 @@ def times(plan, a, device):
             p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
                 t["inds"], vals, t["winmap"], x, compute_dtype=f32), 3,
                 warm=1)
+            # the ring filled by the class loops with 16-byte cp.async from
+            # every thread instead of the bulk route: same bits, timed in
+            # turns (bulk, cp_async, cp_async, bulk)
+            routes = {}
+            for route in ("bulk", "cp_async", "cp_async", "bulk"):
+                xs.SORTED_ROUTE = route
+                routes.setdefault(route, []).append(cuda_ms(
+                    lambda: xs.spmm_block_ell(
+                        t["inds"], vals, t["winmap"], x, compute_dtype=f32,
+                        winsegs=t["winsegs"], segoff=t["segoff"]), 20))
+                if route == "cp_async":
+                    other = xs.spmm_block_ell(
+                        t["inds"], vals, t["winmap"], x, compute_dtype=f32,
+                        winsegs=t["winsegs"], segoff=t["segoff"])
+            xs.SORTED_ROUTE = "bulk"
+            same = torch.equal(other, xs.spmm_block_ell(
+                t["inds"], vals, t["winmap"], x, compute_dtype=f32,
+                winsegs=t["winsegs"], segoff=t["segoff"]))
+            if not same:
+                raise AssertionError(f"row 1 {variant} {name}: the cp_async "
+                                     "route differs from the bulk route")
+            del other
+            # what bounds it: the same launches with no compute, and with
+            # no copies (timing probes; their outputs are discarded)
+            halves = {}
+            for probe in ("copy_only", "compute_only"):
+                xs.TIMING_PROBE = probe
+                try:
+                    halves[probe + "_ms"] = round(cuda_ms(
+                        lambda: xs.spmm_block_ell(
+                            t["inds"], vals, t["winmap"], x,
+                            compute_dtype=f32, winsegs=t["winsegs"],
+                            segoff=t["segoff"]), 20), 4)
+                finally:
+                    xs.TIMING_PROBE = None
             record("row1", variant, name, k_ms, p_ms, lib_ms,
-                   bound(slots, sb, op.n_cols_pad * FUSE * sb, out_bytes))
+                   bound(slots, sb, op.n_cols_pad * FUSE * sb, out_bytes),
+                   bulk_ms=[round(v, 4) for v in routes["bulk"]],
+                   cp_async_ms=[round(v, 4) for v in routes["cp_async"]],
+                   **halves)
 
         vals = t["vals"].to(f16)
         x_bytes = op.n_cols_pad * FUSE * 2
@@ -693,7 +770,15 @@ def times(plan, a, device):
         bpc = ops._gather_blocks_per_call(b, s, buf, FUSE, 2)
         spans = [(lo, min(b, lo + bpc)) for lo in range(0, b, bpc)]
         window = x16[t["winmap"].long()]  # the whole [B, S, BUF, F] tensor
-        k_ms = cuda_ms(lambda: [xs.spmm_block_ell_staged(
+        # the launches over chunk inputs prepared beforehand, as the
+        # gather loop of apply_operator hands them over; and with the
+        # three slices per chunk inside the timed loop, as this loop was
+        # first timed
+        chunks = [(t["inds"][lo:hi], vals[lo:hi], window[lo:hi])
+                  for lo, hi in spans]
+        k_ms = cuda_ms(lambda: [xs.spmm_block_ell_staged(*c)
+                                for c in chunks], 10)
+        sliced_ms = cuda_ms(lambda: [xs.spmm_block_ell_staged(
             t["inds"][lo:hi], vals[lo:hi], window[lo:hi]) for lo, hi in spans],
             10)
         one_ms = cuda_ms(lambda: xs.spmm_block_ell_staged(
@@ -707,8 +792,12 @@ def times(plan, a, device):
         record("row4", "mixed", name, k_ms, p_ms, lib_ms,
                bound(slots, 2, x_bytes, out_bytes, extra=window.numel() * 2),
                launches_per_apply=len(spans), rows_per_chunk=bpc,
-               gather_ms=round(g_ms, 4), one_launch_ms=round(one_ms, 4),
+               sliced_ms=round(sliced_ms, 4), gather_ms=round(g_ms, 4),
+               one_launch_ms=round(one_ms, 4),
                apply_operator_ms=round(a_ms, 4))
+        # the chunked loop's device time, taken after every other timing:
+        # a profiler session leaves each later launch slower on the host
+        profiled.append((name, chunks))
         del window
         # row 1q: int8 and fp8 values on the class-sorted staging
         for variant, qdtype in (("q8", torch.int8),
@@ -727,6 +816,12 @@ def times(plan, a, device):
                    bound(slots, 1, x_bytes, out_bytes, extra=b * s * 4))
             del q, e
         del t
+    for name, chunks in profiled:
+        dev_ms = device_ms(lambda: [xs.spmm_block_ell_staged(*c)
+                                    for c in chunks])
+        out["row4"]["mixed"][name]["device_ms"] = round(dev_ms, 4)
+        log(f"time row4 mixed {name}: device time of the chunked launches "
+            f"{dev_ms:.4f} ms (torch.profiler)")
     return out
 
 
@@ -740,6 +835,7 @@ def entry(key, name, replaces, launches, err, per_operator):
         "source": "src/repro_torch/csrc/xct_spmm.cu",
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         **total, "bound_by": first["proj"]["bound_by"],
+        **({"redesigned": REDESIGNED[key]} if key in REDESIGNED else {}),
         "per_operator": per_operator,
     }
 
@@ -794,9 +890,11 @@ def main():
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    # phase 5 before phase 4: a torch.profiler session leaves every later
+    # launch slower on the host, which the chunked row 4 would measure
+    timing = times(plan, a, device)
     profiles = {p: profile_solve(plan, a, device, precision=p)
                 for p in ("mixed", "q8")}
-    timing = times(plan, a, device)
     kernels = []
     for key, name, replaces in KERNELS:
         kernels.append(entry(

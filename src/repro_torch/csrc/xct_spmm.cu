@@ -4,76 +4,140 @@
 //
 // Numeric contract (the reference's _fma_block): every stage's partial
 // is summed in the compute type C from zero over k = 0..K-1, each step
-// rounded as Arith<C>::step says, then added into an fp32 accumulator.
-// The output is fp32 [B, R, F] for every pair, double included.  With
-// the same window contents every staging mode below therefore gives the
-// same bits.
+// rounded as Arith<C>::step says, then added into an fp32 accumulator
+// in stage order s = 0..S-1.  The output is fp32 [B, R, F] for every
+// pair, double included.  With the same window contents every staging
+// mode below therefore gives the same bits.  Stage partials are
+// independent of each other; only the final fold is ordered, and that
+// is the freedom the design below uses.
 //
-// One kernel template, one CTA per row-block b, looping over the stages
-// s in order (the TPU's sequential revisit of the output block becomes a
-// loop inside the CTA; no atomics).  Per stage the CTA stages the window
-// [BUF, F] in shared memory, stages the stage's R*K indices and values
-// beside it, and after __syncthreads() each thread owns up to kMaxOut
-// (r, f) outputs and loops over k.  The staging mode is the template
-// parameter MODE; each mode replaces one Pallas TPU kernel of
-// src/repro/kernels/xct_spmm.py and has its own extern "C" entries:
+// One kernel template.  A CTA of 256 threads owns one row-block b (or,
+// for row 4, a range of its stages) and walks its stages in rounds of P
+// stages computed at once:
+//
+//   * Compute core (all rows).  A thread owns one row r of one stage and
+//     a 16-byte vector of f (8 values at f16, 4 at f32, 2 at f64; it
+//     loops over vectors when R * F is wider than the CTA).  The row's K
+//     indices and values go from device memory straight into registers,
+//     8 at a time with 16-byte loads, the next 8 loading while these are
+//     used; each k then costs one 16-byte window load from shared memory
+//     for up to 8 multiply-adds (the first design made three
+//     shared-memory loads per multiply-add).  A stage takes R * F /
+//     vector threads (64 at R=32, F=16, f16), so a CTA computes up to 4
+//     stages at once.  Each
+//     stage's partial lands in an fp32 buffer in shared memory, and the
+//     CTA folds the round's partials into the accumulator in stage
+//     order.  Nothing bounds R * F but shared memory.
+//   * Window ring.  The windows live in a ring of D = (L + 1) * P slots
+//     filled L rounds ahead of the compute, each slot completing on its
+//     own mbarrier.  kernels/xct_spmm.py:launch_geometry sizes it from
+//     shared memory for two CTAs per SM (the n=512 proj shard in f16: P
+//     = 2, D = 4), falling back to one CTA with the whole 227 KB (f64:
+//     D = 2) and to a single slot where only one window fits.  Copies
+//     are issued by the last warps of the CTA, which compute nothing
+//     while P < 4, and issuing of round j also prefetches round j+1's
+//     table rows and round j's inds / vals tiles into L2.
+//
+// The staging mode is the template parameter MODE; each mode replaces
+// one Pallas TPU kernel of src/repro/kernels/xct_spmm.py and has its
+// own extern "C" entries:
 //
 //   kSorted   (row 1)  replaces _spmm_fused_kernel_coalesced_sorted
 //             (:249-305, wrapper _pallas_fused_coalesced_sorted :629-660).
-//             The window comes from the class-sorted segment table: x is
-//             row-major [C, F], so a segment {src, dst, len} is one
-//             contiguous len*F run, and the segments of one length class
-//             all have the same power-of-two length, so the rows of a
-//             class flatten into one index space that all threads stride
-//             through with 16-byte loads (segoff gives each class's slot
-//             range; pad slots after segoff[-1] are never read).
+//             Redesigned for Hopper.  The first design staged each window
+//             through registers in ten class loops (one strided loop per
+//             length class, an integer divide per item), then synchronised,
+//             computed and synchronised again: nothing overlapped, and it ran
+//             at 6-8% of its bound.  Now a warp reads the stage's class-sorted
+//             segments {src, dst, len}, each one contiguous len*F run of x as
+//             the TPU kernel's DMA, and copies every segment of at least 256
+//             bytes with one cp.async.bulk (1-D TMA) and the shorter ones
+//             (most of a table: 1-4 rows) with 16-byte cp.async from its
+//             lanes, all completing on the slot's mbarrier.  The copy engine
+//             costs about the same per copy whatever its size, so one bulk
+//             copy per segment was bound by the count of copies.  The first
+//             design's class loops remain as the route "cp_async" (every
+//             thread, 16-byte cp.async) for the A/B and for rows that are not
+//             16-byte multiples (small F), which copy element by element.
 //             Bound on this card: the packed inds + vals stream, 4 B per
-//             padded slot at f16 (about 0.71 GB per projector application
-//             at n=512, 384 angles), read once from device memory; x
-//             (8 MB at f16, F=16) stays in the 50 MB L2.
+//             padded slot at f16 (about 0.71 GB per projector application at
+//             n=512, 384 angles), read once from device memory, x (8 MB at
+//             f16, F=16) staying in the 50 MB L2.  What bounds the design:
+//             every stage stages its whole [BUF, F] window from L2 (4.29 GB
+//             per proj application), and the window reads of the compute meet
+//             bank conflicts (random rows of 32 B: about two wavefronts where
+//             one would do).
 //   kUnsorted (row 2)  replaces _spmm_fused_kernel_coalesced (:193-246,
 //             wrapper _pallas_fused_coalesced :598-626).  The table is in
 //             run order and carries no class offsets: every slot holds
 //             its own len (0 = pad).  Each warp takes one slot at a time
-//             and its lanes copy the slot's len rows.  Bound: the same
+//             and its lanes copy the slot's len rows (the first design's
+//             loop, now with 16-byte cp.async into the ring).  Bound: the same
 //             stream as row 1, plus the work of walking every slot.
 //   kPerRow   (row 3)  replaces _spmm_fused_kernel (:141-190, wrapper
 //             _pallas_fused_per_row :572-595).  Window row j is
 //             x[winmap[b, s, j]]: BUF row copies per stage, all threads
-//             striding through them.  Bound: the same stream as row 1
-//             plus the BUF int32 winmap entries per stage.
+//             striding through them (the first design's loop, now with
+//             cp.async).
+//             Bound: the same stream as row 1 plus the BUF int32 winmap
+//             entries per stage.
 //   kStaged   (row 4)  replaces _spmm_staged_kernel (:327-338, wrapper
-//             spmm_block_ell_staged :685-726).  The caller pre-gathers the
-//             windows into a [B, S, BUF, F] tensor in device memory; the
-//             kernel copies stage s's contiguous [BUF, F] block.  Bound:
-//             that window tensor, about 4.29 GB per projector application
-//             at n=512 in f16 (6648*26*776*16*2 B), against 0.73 GB for
-//             row 1, plus the gather that writes it.
+//             spmm_block_ell_staged :685-726).  Redesigned for Hopper.  The
+//             caller pre-gathers the windows into a [B, S, BUF, F] tensor in
+//             64 MB chunks (24 row-blocks a launch on the n=512 proj shard),
+//             so the first design's one CTA per row-block left 108 of 132 SMs
+//             idle in each of 277 launches.  Now each row-block's stages are
+//             split over a thread block cluster of up to 8 CTAs (7 at S=26),
+//             each filling its slots with one bulk copy per stage (the [BUF,
+//             F] block is contiguous) and computing its stages at once; CTA 0
+//             of the cluster folds all stage partials in stage order, reading
+//             the others' through distributed shared memory.  Bound: the
+//             window tensor, about 4.29 GB per projector application at n=512
+//             in f16 (6648*26*776*16*2 B), against 0.73 GB for row 1, plus the
+//             gather that writes it; chunked, the host's launch of each chunk
+//             (Python and the CUDA runtime, 10-30 microseconds) as well.
 //
 // The quantized form (Q = true, row 1q) replaces the same three fused
 // Pallas kernels with quantized=True (_block_scale :133-138, applied in
 // _fma_block :88-114): vals are int8 or fp8-e4m3 (V), the window f16 and
 // the compute f32.  Each (b, s) carries one int32 exponent e in
-// [-100, 100]; the CTA builds 2^e exactly from its bits and forms
-// float(q) * 2^e before the step, exact in f32 as the reference's
-// vals.astype(f32) * scale is.  Bound: 3 B per padded slot (int16 index
-// + 1-byte value) plus 4 B per (b, s).
+// [-100, 100]; the thread that computes the stage builds 2^e exactly
+// from its bits into a register and forms float(q) * 2^e before the
+// step, exact in f32 as the reference's vals.astype(f32) * scale is.
+// Bound: 3 B per padded slot (int16 index + 1-byte value) plus 4 B per
+// (b, s).  It shares row 1's staging, so the window traffic bounds it
+// as it bounds row 1.
 //
-// Double buffering with cp.async, TMA and tensor cores are later work.
+// Registers per thread of the redesigned entries (nvcc 12.8, -O3,
+// -Xptxas -v, sm_90a; chip_smoke.py logs every entry's line): row 1
+// f16/f32 106, f16/f16 105, bf16/f32 106, bf16/bf16 128, f32 94, f64 126;
+// row 1q int8 and fp8 102; row 4 f16/f32 72, f32 values on f16 windows
+// 79, f32 92, f64 94.  No entry of the 31 spills; __launch_bounds__ caps
+// them at 128 so that two CTAs fit on an SM.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxOut = 4;  // outputs per thread: R * F <= 1024
+constexpr int kChunk = 8;  // indices and values per register chunk
 
 enum Staging : int { kSorted = 0, kUnsorted = 1, kPerRow = 2, kStaged = 3 };
+// how a window reaches its ring slot: 16-byte cp.async (or element
+// copies) by every thread through the staging loops, or one
+// cp.async.bulk per contiguous run (kSorted, kStaged)
+enum Route : int { kAsync = 0, kBulk = 1 };
+// timing probes: skip the compute, or issue no copies (slots stay stale)
+enum Probe : int { kProbeNoCompute = 1, kProbeNoCopy = 2 };
 
 // ---- one step part + v * x in the compute type C ---------------------
 // Rounded as the reference computes it on its CPU validation platform
@@ -168,193 +232,595 @@ __host__ __device__ __forceinline__ size_t align16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
 }
 
-template <typename V, typename S>
-__host__ __device__ __forceinline__ size_t smem_layout(int R, int K, int BUF,
-                                                       int F, size_t* vals_at,
-                                                       size_t* inds_at) {
-  const size_t win = align16(static_cast<size_t>(BUF) * F * sizeof(S));
-  const size_t vals = align16(static_cast<size_t>(R) * K * sizeof(V));
-  const size_t inds = align16(static_cast<size_t>(R) * K * sizeof(int16_t));
-  *vals_at = win;
-  *inds_at = win + vals;
-  return win + vals + inds;
+// ---- launch geometry and the shared-memory layout --------------------
+struct Geom {
+  int n_stage, R, K, BUF, F, nseg, noff;
+  int depth;       // ring slots D = (L + 1) * inflight
+  int inflight;    // stages computed at once, P
+  int cluster;     // CTAs per row-block (row 4 only; 1 elsewhere)
+  int nloc;        // stages per CTA: ceil(S / cluster)
+  int route;       // kAsync or kBulk
+  int vec;         // window rows are 16-byte multiples and x is aligned
+  int kvec;        // inds / vals chunks load as 16-byte vectors
+  int row_stride;  // bytes per window row in shared memory
+  int nvec;        // 16-byte vectors per window row
+  int group;       // threads per stage
+  int probe;       // kProbe* bits (timing experiments only)
+  int bulk_min;    // bytes from which a segment goes by one bulk copy
+};
+
+struct Layout {
+  size_t win, part, acc, bars, total;
+};
+
+// [ring: depth x BUF x row_stride][partials: nparts x R*F fp32]
+// [accumulator: R*F fp32, one CTA per row-block only][depth mbarriers].
+// Mirrored by kernels/xct_spmm.py:smem_bytes.
+__host__ __device__ __forceinline__ Layout smem_layout(const Geom& g) {
+  Layout l;
+  l.win = static_cast<size_t>(g.BUF) * g.row_stride;
+  const size_t rf = static_cast<size_t>(g.R) * g.F * sizeof(float);
+  const size_t nparts = g.cluster > 1 ? g.nloc : 2 * g.inflight;
+  l.part = g.depth * l.win;
+  l.acc = l.part + align16(nparts * rf);
+  l.bars = l.acc + (g.cluster > 1 ? 0 : align16(rf));
+  l.total = l.bars + static_cast<size_t>(g.depth) * sizeof(uint64_t);
+  return l;
 }
 
-// Copy one unit of window row `dst` from source row `src`: 16 bytes when
-// rows are 16-byte multiples (vec), else one element.
-template <typename S>
-__device__ __forceinline__ void copy_unit(S* __restrict__ win,
-                                          const S* __restrict__ x, size_t src,
-                                          size_t dst, int unit, int F,
-                                          int vec) {
-  if (vec) {
-    const size_t row_bytes = static_cast<size_t>(F) * sizeof(S);
-    const uint4* from = reinterpret_cast<const uint4*>(
-        reinterpret_cast<const unsigned char*>(x) + src * row_bytes);
-    uint4* to = reinterpret_cast<uint4*>(
-        reinterpret_cast<unsigned char*>(win) + dst * row_bytes);
-    to[unit] = from[unit];
-  } else {
-    win[dst * F + unit] = x[src * F + unit];
+// ---- PTX: mbarriers, bulk and 16-byte asynchronous copies ------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// raise the bytes the current phase waits for, without arriving
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar,
+                                                    uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t"
+      ".reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one contiguous global -> shared copy, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* src,
+                                            uint32_t bytes) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (bytes & 15) == 0 &&
+      bytes > 0) {
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(
+                     reinterpret_cast<uint64_t>(src)),
+                 "r"(bytes)
+                 : "memory");
   }
 }
 
-// Stage the window of stage bs = b * n_stage + s into shared memory.
+// No memory clobber: the staging loops may load their next descriptors
+// while earlier copies are in flight.  Nothing reads a slot before the
+// mbarrier wait, which does clobber memory.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)));
+}
+
+// arrive on `bar` once this thread's earlier cp.async copies are done
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+
+// ---- the staging loops of the async route (the first design's, now ---
+// ---- asynchronous) ----------------------------------------------------
+// Copy one unit of window row `dst` from source row `src`: 16 bytes by
+// cp.async when rows are 16-byte multiples (vec), else one element.
+template <typename S>
+__device__ __forceinline__ void copy_unit(unsigned char* __restrict__ win,
+                                          const S* __restrict__ x,
+                                          size_t src, size_t dst, int unit,
+                                          const Geom& g) {
+  if (g.vec) {
+    cp_async16(win + dst * g.row_stride + unit * 16,
+               reinterpret_cast<const unsigned char*>(x) +
+                   src * g.row_stride + unit * 16);
+  } else {
+    reinterpret_cast<S*>(win + dst * g.row_stride)[unit] = x[src * g.F + unit];
+  }
+}
+
+// Stage the window of stage bs = b * n_stage + s into `win`.
 template <int MODE, typename S>
 __device__ __forceinline__ void stage_window(
-    S* __restrict__ win, const S* __restrict__ x,
+    unsigned char* __restrict__ win, const S* __restrict__ x,
     const int* __restrict__ table, const int* __restrict__ segoff,
-    size_t bs, int BUF, int F, int nseg, int noff, int vec,
-    int units_per_row) {
+    size_t bs, const Geom& g) {
   const int tid = threadIdx.x;
+  const int upr = g.vec ? g.row_stride / 16 : g.F;  // units per row
   if constexpr (MODE == kSorted) {
-    const int* segs = table + bs * nseg * 3;
-    const int* off = segoff + bs * noff;
-    const int n_cls = noff - 1;
+    const int* segs = table + bs * g.nseg * 3;
+    const int* off = segoff + bs * g.noff;
+    const int n_cls = g.noff - 1;
     for (int ci = 0; ci < n_cls; ++ci) {
       const int g0 = off[ci];
       const int g1 = off[ci + 1];
       if (g0 >= g1) continue;
       const int lg = n_cls - 1 - ci;  // class ci copies 2^lg rows
-      const int n_items = ((g1 - g0) << lg) * units_per_row;
+      const int n_items = ((g1 - g0) << lg) * upr;
       for (int it = tid; it < n_items; it += kThreads) {
-        const int row = it / units_per_row;
-        const int unit = it - row * units_per_row;
-        const int g = g0 + (row >> lg);
+        const int row = it / upr;
+        const int unit = it - row * upr;
+        const int seg = g0 + (row >> lg);
         const int rr = row & ((1 << lg) - 1);
-        copy_unit(win, x, static_cast<size_t>(segs[3 * g]) + rr,
-                  static_cast<size_t>(segs[3 * g + 1]) + rr, unit, F, vec);
+        copy_unit(win, x, static_cast<size_t>(segs[3 * seg]) + rr,
+                  static_cast<size_t>(segs[3 * seg + 1]) + rr, unit, g);
       }
     }
   } else if constexpr (MODE == kUnsorted) {
-    const int* segs = table + bs * nseg * 3;
+    const int* segs = table + bs * g.nseg * 3;
     const int warp = tid >> 5;
     const int lane = tid & 31;
-    for (int g = warp; g < nseg; g += kWarps) {
-      const int len = segs[3 * g + 2];
+    for (int seg = warp; seg < g.nseg; seg += kWarps) {
+      const int len = segs[3 * seg + 2];
       if (len <= 0) continue;  // pad slot
-      const size_t src = static_cast<size_t>(segs[3 * g]);
-      const size_t dst = static_cast<size_t>(segs[3 * g + 1]);
-      const int n_items = len * units_per_row;
+      const size_t src = static_cast<size_t>(segs[3 * seg]);
+      const size_t dst = static_cast<size_t>(segs[3 * seg + 1]);
+      const int n_items = len * upr;
       for (int it = lane; it < n_items; it += 32) {
-        const int row = it / units_per_row;
-        const int unit = it - row * units_per_row;
-        copy_unit(win, x, src + row, dst + row, unit, F, vec);
+        const int row = it / upr;
+        const int unit = it - row * upr;
+        copy_unit(win, x, src + row, dst + row, unit, g);
       }
     }
   } else if constexpr (MODE == kPerRow) {
-    const int* wm = table + bs * BUF;
-    const int n_items = BUF * units_per_row;
+    const int* wm = table + bs * g.BUF;
+    const int n_items = g.BUF * upr;
     for (int it = tid; it < n_items; it += kThreads) {
-      const int row = it / units_per_row;
-      const int unit = it - row * units_per_row;
+      const int row = it / upr;
+      const int unit = it - row * upr;
       copy_unit(win, x, static_cast<size_t>(wm[row]),
-                static_cast<size_t>(row), unit, F, vec);
+                static_cast<size_t>(row), unit, g);
     }
   } else {  // kStaged: x is the pre-gathered [B, S, BUF, F] window tensor
-    const S* block = x + bs * BUF * F;
-    const int n_items = BUF * units_per_row;
+    const S* block = x + bs * g.BUF * g.F;
+    const int n_items = g.BUF * upr;
     for (int it = tid; it < n_items; it += kThreads) {
-      const int row = it / units_per_row;
-      const int unit = it - row * units_per_row;
+      const int row = it / upr;
+      const int unit = it - row * upr;
       copy_unit(win, block, static_cast<size_t>(row),
-                static_cast<size_t>(row), unit, F, vec);
+                static_cast<size_t>(row), unit, g);
     }
   }
 }
 
+// Issue the windows of local stages [first, first + count) into the
+// slots [slot0, slot0 + count): the bulk route by one warp per stage,
+// the async route by every thread, each arriving once per slot.
+template <int MODE, typename V, typename S>
+__device__ __forceinline__ void issue_stages(
+    unsigned char* __restrict__ ring, uint64_t* bars,
+    const int16_t* __restrict__ inds, const V* __restrict__ vals,
+    const S* __restrict__ x, const int* __restrict__ table,
+    const int* __restrict__ segoff, size_t bs0, int slot0, int count,
+    int next, size_t win_bytes, const Geom& g) {
+  const int tid = threadIdx.x;
+  const size_t rk = static_cast<size_t>(g.R) * g.K;
+  const uint32_t window_bytes = static_cast<uint32_t>(g.BUF) * g.row_stride;
+  // Copies are issued from the last warps of the CTA, which compute no
+  // stage when the stages in flight leave them idle (P = 2 stages of 64
+  // threads at R=32, F=16, f16 leave warps 4-7).
+  const int rtid = kThreads - 1 - tid;
+  if (rtid < count) {  // the round's inds / vals tiles, ahead into L2
+    prefetch_l2(inds + (bs0 + rtid) * rk,
+                static_cast<uint32_t>(rk * sizeof(int16_t)));
+    prefetch_l2(vals + (bs0 + rtid) * rk,
+                static_cast<uint32_t>(rk * sizeof(V)));
+  } else if (rtid >= 32 && rtid < 32 + next) {
+    // the next round's table rows, so that its issue chain (offsets,
+    // then segments) hits L2
+    const size_t bs = bs0 + count + (rtid - 32);
+    if constexpr (MODE == kSorted || MODE == kUnsorted) {
+      const uintptr_t segs =
+          reinterpret_cast<uintptr_t>(table + bs * g.nseg * 3);
+      const uint32_t bytes = static_cast<uint32_t>(g.nseg) * 12;
+      prefetch_l2(reinterpret_cast<const void*>(segs & ~uintptr_t{15}),
+                  (bytes < 1024 ? bytes : 1024) & ~15u);
+    } else if constexpr (MODE == kPerRow) {
+      prefetch_l2(table + bs * g.BUF,
+                  static_cast<uint32_t>(g.BUF) * 4 & ~15u);
+    }
+    if constexpr (MODE == kSorted) {
+      const uintptr_t off =
+          reinterpret_cast<uintptr_t>(segoff + bs * g.noff) & ~uintptr_t{15};
+      prefetch_l2(reinterpret_cast<const void*>(off), 64);
+    }
+  }
+  if constexpr (MODE == kSorted || MODE == kStaged) {
+    if (g.route == kBulk) {
+      const int warp = kWarps - 1 - (tid >> 5);
+      const int lane = tid & 31;
+      const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+      for (int p = warp; p < count; p += kWarps) {
+        const size_t bs = bs0 + p;
+        unsigned char* dst = ring + (slot0 + p) * win_bytes;
+        uint64_t* bar = bars + slot0 + p;
+        // the slot was last read by the generic proxy (the compute)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        if constexpr (MODE == kSorted) {
+          // segments of at least bulk_min bytes go by one bulk copy each,
+          // the short ones (most of a table) by 16-byte cp.async; each
+          // lane expects the bytes of its own bulk copies before issuing
+          // them and arrives once its cp.async copies have landed, so
+          // the slot completes when all 32 lanes' copies have
+          const int* segs = table + bs * g.nseg * 3;
+          const int nreal = (g.probe & kProbeNoCopy)
+                                ? 0
+                                : segoff[bs * g.noff + g.noff - 1];
+          for (int q = lane; q < nreal; q += 32) {
+            const size_t src = static_cast<size_t>(segs[3 * q]);
+            const size_t row = static_cast<size_t>(segs[3 * q + 1]);
+            const uint32_t bytes =
+                static_cast<uint32_t>(segs[3 * q + 2]) * g.row_stride;
+            unsigned char* to = dst + row * g.row_stride;
+            const unsigned char* from = xb + src * g.row_stride;
+            if (bytes >= static_cast<uint32_t>(g.bulk_min)) {
+              mbar_expect_tx_only(bar, bytes);
+              bulk_copy(to, from, bytes, bar);
+            } else {
+              for (uint32_t u = 0; u < bytes; u += 16)
+                cp_async16(to + u, from + u);
+            }
+          }
+          cp_async_arrive(bar);
+        } else if (lane == 0) {
+          const bool copy = !(g.probe & kProbeNoCopy);
+          mbar_expect_tx(bar, copy ? window_bytes : 0);
+          if (copy) bulk_copy(dst, xb + bs * window_bytes, window_bytes, bar);
+        }
+      }
+      return;
+    }
+  }
+  for (int p = 0; p < count && !(g.probe & kProbeNoCopy); ++p) {
+    stage_window<MODE, S>(ring + (slot0 + p) * win_bytes, x, table, segoff,
+                          bs0 + p, g);
+  }
+  for (int p = 0; p < count; ++p) cp_async_arrive(bars + slot0 + p);
+}
+
+// ---- the compute core: one stage's partial for this thread's items ---
+template <typename T>
+__device__ __forceinline__ void load_chunk(T (&dst)[kChunk],
+                                           const T* __restrict__ src, int n,
+                                           int kvec) {
+  if (kvec && n == kChunk) {
+    if constexpr (sizeof(T) == 1) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+      memcpy(dst, &u, sizeof(u));
+    } else {
+      constexpr int kVecs = sizeof(T) * kChunk / 16;
+      uint4 u[kVecs];
+#pragma unroll
+      for (int i = 0; i < kVecs; ++i)
+        u[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      memcpy(dst, u, sizeof(u));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+      if (j < n) dst[j] = src[j];
+  }
+}
+
+// acc[e] = step(acc[e], v, window[ind][f0 + e]) for the vector's values
+template <typename V, typename S, typename C, bool Q>
+__device__ __forceinline__ void step_k(C (&acc)[16 / sizeof(S)],
+                                       const unsigned char* __restrict__ wv,
+                                       int16_t ind, V val, float scale,
+                                       int row_stride) {
+  constexpr int kVw = 16 / sizeof(S);
+  const uint4 w = *reinterpret_cast<const uint4*>(
+      wv + static_cast<int>(ind) * row_stride);
+  S xs[kVw];
+  memcpy(xs, &w, sizeof(w));
+  C v = to_compute<C, V>(val);
+  if constexpr (Q) v = __fmul_rn(v, scale);
+#pragma unroll
+  for (int e = 0; e < kVw; ++e)
+    acc[e] = Arith<C>::step(acc[e], v, to_compute<C, S>(xs[e]));
+}
+
+template <typename V, typename S, typename C, bool Q>
+__device__ __forceinline__ void compute_stage(
+    const int16_t* __restrict__ inds, const V* __restrict__ vals,
+    const int* __restrict__ scales, const unsigned char* __restrict__ win,
+    float* __restrict__ part, size_t bs, int lt, const Geom& g) {
+  constexpr int kVw = 16 / sizeof(S);  // window values per 16 bytes
+  float scale = 1.0f;
+  if constexpr (Q) scale = pow2f(__ldg(scales + bs));
+  const int items = g.R * g.nvec;
+  for (int it = lt; it < items; it += g.group) {
+    const int r = it / g.nvec;
+    const int v = it - r * g.nvec;
+    const size_t row = (bs * g.R + r) * static_cast<size_t>(g.K);
+    const int16_t* ip = inds + row;
+    const V* vp = vals + row;
+    const unsigned char* wv = win + v * 16;
+    C acc[kVw];
+#pragma unroll
+    for (int e = 0; e < kVw; ++e) acc[e] = Arith<C>::zero();
+    int16_t ic[kChunk];
+    V vc[kChunk];
+    load_chunk(ic, ip, min(kChunk, g.K), g.kvec);
+    load_chunk(vc, vp, min(kChunk, g.K), g.kvec);
+    for (int k0 = 0; k0 < g.K; k0 += kChunk) {
+      const int n = min(kChunk, g.K - k0);
+      int16_t in[kChunk];
+      V vn[kChunk];
+      const int k1 = k0 + kChunk;
+      if (k1 < g.K) {  // the next chunk loads while this one is used
+        load_chunk(in, ip + k1, min(kChunk, g.K - k1), g.kvec);
+        load_chunk(vn, vp + k1, min(kChunk, g.K - k1), g.kvec);
+      }
+      if (n == kChunk) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          step_k<V, S, C, Q>(acc, wv, ic[j], vc[j], scale, g.row_stride);
+      } else {  // the last, partial chunk (K not a multiple of 8)
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          if (j < n)
+            step_k<V, S, C, Q>(acc, wv, ic[j], vc[j], scale,
+                                   g.row_stride);
+      }
+      if (k1 < g.K) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          ic[j] = in[j];
+          vc[j] = vn[j];
+        }
+      }
+    }
+    const int f0 = v * kVw;
+    float* pr = part + r * g.F + f0;
+    if constexpr (kVw % 4 == 0) {
+      if ((g.F & 3) == 0 && f0 + kVw <= g.F) {  // 16-byte stores
+#pragma unroll
+        for (int e = 0; e < kVw; e += 4)
+          *reinterpret_cast<float4*>(pr + e) = make_float4(
+              Arith<C>::to_f32(acc[e]), Arith<C>::to_f32(acc[e + 1]),
+              Arith<C>::to_f32(acc[e + 2]), Arith<C>::to_f32(acc[e + 3]));
+        continue;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kVw; ++e)
+      if (f0 + e < g.F) pr[e] = Arith<C>::to_f32(acc[e]);
+  }
+}
+
 template <int MODE, typename V, typename S, typename C, bool Q>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     xct_spmm_kernel(const int16_t* __restrict__ inds,
                     const V* __restrict__ vals, const S* __restrict__ x,
                     const int* __restrict__ table,
                     const int* __restrict__ segoff,
                     const int* __restrict__ scales, float* __restrict__ out,
-                    int n_stage, int R, int K, int BUF, int F, int nseg,
-                    int noff, int vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  size_t vals_at, inds_at;
-  smem_layout<V, S>(R, K, BUF, F, &vals_at, &inds_at);
-  S* win = reinterpret_cast<S*>(smem);
-  V* vals_s = reinterpret_cast<V*>(smem + vals_at);
-  int16_t* inds_s = reinterpret_cast<int16_t*>(smem + inds_at);
+                    const Geom g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout lay = smem_layout(g);
+  unsigned char* ring = smem;
+  float* part = reinterpret_cast<float*>(smem + lay.part);
+  float* acc = reinterpret_cast<float*>(smem + lay.acc);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
 
-  const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int rf = R * F;
-  const int rk = R * K;
-  const size_t row_bytes = static_cast<size_t>(F) * sizeof(S);
-  const int units_per_row = vec ? static_cast<int>(row_bytes / 16) : F;
+  const int b = blockIdx.x / g.cluster;
+  const int rank = blockIdx.x - b * g.cluster;
+  const int s_lo = rank * g.nloc;
+  const int nst = max(0, min(g.nloc, g.n_stage - s_lo));
+  const int rf = g.R * g.F;
+  const int P = g.inflight;
+  const int sets = g.depth / P;  // L + 1 slot sets of P slots
+  const int rounds = (nst + P - 1) / P;
+  const size_t bs0 = static_cast<size_t>(b) * g.n_stage + s_lo;
 
-  float acc[kMaxOut];
-#pragma unroll
-  for (int j = 0; j < kMaxOut; ++j) acc[j] = 0.0f;
+  if (tid == 0) {
+    // arrivals per fill: the issuing warp's 32 lanes under kSorted's
+    // bulk route, the one expect_tx of kStaged's, every thread under the
+    // async route
+    const int arrivals =
+        g.route == kBulk ? (MODE == kSorted ? 32 : 1) : kThreads;
+    for (int i = 0; i < g.depth; ++i) mbar_init(bars + i, arrivals);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (g.cluster == 1)
+    for (int e = tid; e < rf; e += kThreads) acc[e] = 0.0f;
+  __syncthreads();
 
-  for (int s = 0; s < n_stage; ++s) {
-    const size_t bs = static_cast<size_t>(b) * n_stage + s;
-    stage_window<MODE, S>(win, x, table, segoff, bs, BUF, F, nseg, noff, vec,
-                          units_per_row);
-    // ---- stage this (b, s) tile of indices and values ---------------
-    const int16_t* ib = inds + bs * rk;
-    const V* vb = vals + bs * rk;
-    for (int i = tid; i < rk; i += kThreads) {
-      inds_s[i] = ib[i];
-      vals_s[i] = vb[i];
+  auto issue = [&](int j) {
+    const int count = min(P, nst - j * P);
+    const int next = max(0, min(P, nst - (j + 1) * P));
+    issue_stages<MODE, V, S>(ring, bars, inds, vals, x, table, segoff,
+                             bs0 + j * P, (j % sets) * P, count, next,
+                             lay.win, g);
+  };
+  for (int j = 0; j < sets - 1 && j < rounds; ++j) issue(j);
+
+  // the stage of the round this thread computes, and its place in it
+  const int grp = tid / g.group;
+  const int lt = tid - grp * g.group;
+  for (int j = 0; j < rounds; ++j) {
+    // round j + L goes into the slots round j - 1 released
+    if (j + sets - 1 < rounds) issue(j + sets - 1);
+    if (!g.vec) __syncthreads();  // element copies are plain stores
+    const int ls = j * P + grp;
+    if (grp < P && ls < nst) {
+      const int slot = (j % sets) * P + grp;
+      mbar_wait(bars + slot, (j / sets) & 1);
+      float* pb = part + static_cast<size_t>(
+                             g.cluster > 1 ? ls : (j & 1) * P + grp) * rf;
+      if (!(g.probe & kProbeNoCompute))
+        compute_stage<V, S, C, Q>(inds, vals, scales,
+                                      ring + slot * lay.win, pb, bs0 + ls,
+                                      lt, g);
     }
-    float scale = 1.0f;
-    if constexpr (Q) scale = pow2f(scales[bs]);
-    __syncthreads();
-
-    // ---- per-stage partial in C, then into the fp32 accumulator -----
-#pragma unroll
-    for (int j = 0; j < kMaxOut; ++j) {
-      const int o = tid + j * kThreads;
-      if (o < rf) {
-        const int r = o / F;
-        const int f = o - r * F;
-        const int16_t* ir = inds_s + r * K;
-        const V* vr = vals_s + r * K;
-        C part = Arith<C>::zero();
-        for (int k = 0; k < K; ++k) {
-          const C xv = to_compute<C, S>(win[static_cast<int>(ir[k]) * F + f]);
-          C v = to_compute<C, V>(vr[k]);
-          if constexpr (Q) v = __fmul_rn(v, scale);
-          part = Arith<C>::step(part, v, xv);
-        }
-        acc[j] = __fadd_rn(acc[j], Arith<C>::to_f32(part));
+    __syncthreads();  // partials complete; round j's slots free
+    if (g.cluster == 1) {
+      // fold the round's partials into the accumulator in stage order
+      const int count = min(P, nst - j * P);
+      const float* pr = part + static_cast<size_t>((j & 1) * P) * rf;
+      for (int e = tid; e < rf; e += kThreads) {
+        float a = acc[e];
+        for (int p = 0; p < count; ++p) a = __fadd_rn(a, pr[p * rf + e]);
+        acc[e] = a;
       }
     }
-    __syncthreads();  // the next stage overwrites the window
   }
 
-#pragma unroll
-  for (int j = 0; j < kMaxOut; ++j) {
-    const int o = tid + j * kThreads;
-    if (o < rf) out[static_cast<size_t>(b) * rf + o] = acc[j];
+  float* ob = out + static_cast<size_t>(b) * rf;
+  if (g.cluster == 1) {
+    for (int e = tid; e < rf; e += kThreads) ob[e] = acc[e];
+    return;
   }
+  // row 4: CTA 0 folds every CTA's stage partials, in stage order,
+  // through distributed shared memory
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  if (rank == 0) {
+    for (int e = tid; e < rf; e += kThreads) {
+      float a = 0.0f;
+      for (int q = 0; q < g.cluster; ++q) {
+        const int nq = max(0, min(g.nloc, g.n_stage - q * g.nloc));
+        const float* rp = cl.map_shared_rank(part, q);
+        for (int ls = 0; ls < nq; ++ls) a = __fadd_rn(a, rp[ls * rf + e]);
+      }
+      ob[e] = a;
+    }
+  }
+  cl.sync();  // the others' partials stay alive until CTA 0 has read them
+}
+
+template <int MODE, typename V, typename S, typename C, bool Q>
+int launch_with(const Geom& g, int B, const void* inds, const void* vals,
+                const void* x, const void* table, const void* segoff,
+                const void* scales, void* out, void* stream) {
+  const size_t smem = smem_layout(g).total;
+  auto kernel = xct_spmm_kernel<MODE, V, S, C, Q>;
+  // the largest shared-memory opt-in set so far, per device: the
+  // attribute call costs more than the launch on the chunked row 4 path
+  constexpr int kDevices = 64;
+  static int opted_in[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* opted = dev < kDevices ? &opted_in[dev] : nullptr;
+  if (smem > 48 * 1024 && (!opted || static_cast<int>(smem) > *opted)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (opted) *opted = static_cast<int>(smem);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * g.cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = g.cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int16_t*>(inds),
+      static_cast<const V*>(vals), static_cast<const S*>(x),
+      static_cast<const int*>(table), static_cast<const int*>(segoff),
+      static_cast<const int*>(scales), static_cast<float*>(out), g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MODE, typename V, typename S, typename C, bool Q>
 int launch(const void* inds, const void* vals, const void* x,
            const void* table, const void* segoff, const void* scales,
            void* out, int B, int n_stage, int R, int K, int BUF, int F,
-           int nseg, int noff, int vec, void* stream) {
+           int nseg, int noff, int depth, int inflight, int cluster,
+           int route, void* stream) {
   if (B == 0) return static_cast<int>(cudaSuccess);
-  size_t vals_at, inds_at;
-  const size_t smem = smem_layout<V, S>(R, K, BUF, F, &vals_at, &inds_at);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        xct_spmm_kernel<MODE, V, S, C, Q>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  xct_spmm_kernel<MODE, V, S, C, Q><<<B, kThreads, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(inds), static_cast<const V*>(vals),
-      static_cast<const S*>(x), static_cast<const int*>(table),
-      static_cast<const int*>(segoff), static_cast<const int*>(scales),
-      static_cast<float*>(out), n_stage, R, K, BUF, F, nseg, noff, vec);
-  return static_cast<int>(cudaGetLastError());
+  Geom g;
+  g.n_stage = n_stage;
+  g.R = R;
+  g.K = K;
+  g.BUF = BUF;
+  g.F = F;
+  g.nseg = nseg;
+  g.noff = noff;
+  g.depth = depth;
+  g.inflight = inflight;
+  g.cluster = cluster;
+  g.nloc = cluster > 0 ? (n_stage + cluster - 1) / cluster : 0;
+  g.route = route & 1;
+  g.probe = (route >> 1) & 3;
+  g.bulk_min = (route >> 4) * 16;
+  const size_t row_bytes = static_cast<size_t>(F) * sizeof(S);
+  g.vec = row_bytes % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const size_t vals_align = sizeof(V) * kChunk < 16 ? sizeof(V) * kChunk : 16;
+  g.kvec = K % kChunk == 0 && reinterpret_cast<uintptr_t>(inds) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(vals) % vals_align == 0;
+  g.row_stride = static_cast<int>(align16(row_bytes));
+  g.nvec = g.row_stride / 16;
+  const int items = R * g.nvec;
+  g.group = items < kThreads ? items : kThreads;
+  if (inflight < 1 || depth < inflight || depth % inflight != 0 ||
+      inflight * g.group > kThreads || cluster < 1 || cluster > 8 ||
+      (g.route == kBulk &&
+       (!g.vec || (MODE != kSorted && MODE != kStaged))) ||
+      R < 1 || F < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_with<MODE, V, S, C, Q>(g, B, inds, vals, x, table, segoff,
+                                       scales, out, stream);
 }
 
 }  // namespace
@@ -363,16 +829,23 @@ int launch(const void* inds, const void* vals, const void* x,
 // segment table (sorted, unsorted), the int32 winmap (per_row) or unused
 // (staged); `x` is the [C, F] slab, or the [B, S, BUF, F] window tensor
 // for staged; `scales` is the [B, S] int32 exponent table of the
-// quantized entries and unused elsewhere.
+// quantized entries and unused elsewhere.  `depth`, `inflight` and
+// `cluster` are the ring slots, the stages computed at once and the CTAs
+// per row-block (kernels/xct_spmm.py:launch_geometry).  `route` packs
+// bit 0: one bulk copy per contiguous run (sorted, staged) rather than the
+// staging loops with cp.async; bits 1-2: a timing probe (kProbe*);
+// bits 4 and up: the bulk-copy threshold of row 1 in units of 16 bytes.
 #define XCT_SPMM_ENTRY(NAME, MODE, V, S, C, Q)                              \
   extern "C" int NAME(const void* inds, const void* vals, const void* x,    \
                       const void* table, const void* segoff,                \
                       const void* scales, void* out, int B, int n_stage,    \
                       int R, int K, int BUF, int F, int nseg, int noff,     \
-                      int vec, void* stream) {                              \
+                      int depth, int inflight, int cluster, int route,      \
+                      void* stream) {                                       \
     return launch<MODE, V, S, C, Q>(inds, vals, x, table, segoff, scales,   \
                                     out, B, n_stage, R, K, BUF, F, nseg,    \
-                                    noff, vec, stream);                     \
+                                    noff, depth, inflight, cluster, route,  \
+                                    stream);                                \
   }
 
 // the six float pairs and the two quantized value types of one fused mode

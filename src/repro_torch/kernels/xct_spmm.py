@@ -6,13 +6,13 @@ one device's shard,
     out[b, r, :] = sum_s sum_k vals[b, s, r, k] * x[winmap[b, s, inds[b, s, r, k]], :]
 
 as fp32 ``[B, R, F]``, each stage's partial summed in ``compute_dtype``
-from zero over ``k`` and then added into the fp32 output (the
-reference's ``_fma_block`` contract).
+from zero over ``k`` and then added into the fp32 output in stage order
+(the reference's ``_fma_block`` contract).
 
 On a CUDA tensor they launch the hand-written kernels in
-``csrc/xct_spmm.cu`` (one CTA per row-block; see the note at the top of
-that file for what each staging mode replaces and what bounds it).
-``spmm_block_ell`` picks the kernel from its arguments, as the
+``csrc/xct_spmm.cu`` (see the note at the top of that file for what each
+staging mode replaces, what bounds it and what its design does about
+it).  ``spmm_block_ell`` picks the kernel from its arguments, as the
 reference's ``one_call`` does: ``winsegs`` + ``segoff`` -> the
 class-sorted kernel (row 1), ``winsegs`` alone -> the unsorted-segment
 kernel (row 2), neither -> one copy per window row (row 3); ``scales``
@@ -21,6 +21,19 @@ is the pre-gathered window kernel (row 4).  On a CPU tensor each runs
 its plain version.  There is no fallback between the two: a CUDA call
 that cannot launch raises.  ``LAUNCHES`` counts the launches of every
 kernel by name.
+
+Rows 1, 1q and 4 were redesigned for Hopper: a thread computes one row
+of one stage on a 16-byte vector of ``F`` with its indices and values in
+registers, a CTA computes several stages at once from a ring of windows
+in shared memory that producer warps fill ahead of the compute (row 1:
+one ``cp.async.bulk`` per segment of the class-sorted table of 256 bytes
+or more, 16-byte ``cp.async`` for the shorter ones; row 4: one bulk
+copy per stage), and row 4 splits each row-block's stages over a thread
+block cluster.  :func:`launch_geometry` chooses the ring depth,
+the stages computed at once and the cluster size from what
+:func:`smem_bytes` says fits; nothing else bounds ``R * F``.  Rows 2 and
+3 share the compute core and keep their staging loops, now as 16-byte
+``cp.async`` copies into the ring.
 
 The kernel is compiled with ``nvcc`` into a plain-C shared library under
 ``build/`` at first use and loaded with ``ctypes``; nothing is compiled
@@ -37,6 +50,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +64,10 @@ __all__ = [
     "build",
     "reset_launches",
     "smem_bytes",
+    "launch_geometry",
+    "Geometry",
+    "COPY_ROUTES",
+    "TIMING_PROBES",
     "SMEM_LIMIT",
     "KERNEL_PAIRS",
     "QUANT_DTYPES",
@@ -59,8 +77,29 @@ __all__ = [
 
 # Shared memory one CTA may use on Hopper (232,448 bytes of the SM's 256 KB).
 SMEM_LIMIT = 232_448
+_SM_SMEM = 233_472  # shared memory of one SM; 1 KB of it reserved per CTA
 _THREADS = 256
-_MAX_OUT = 4  # outputs per thread in the kernel: R * F <= 1024
+_MAX_CLUSTER = 8  # CTAs per row-block in row 4 (the portable cluster size)
+_MAX_LOOKAHEAD = 3  # rounds of windows in flight ahead of the compute
+# CTAs per SM each staging's ring is sized for: two 256-thread CTAs keep
+# 4 stages computing on an SM and hide each other's first round and last
+# fold; rows 2 and 3, whose staging loops wait on their descriptors,
+# want a third.
+_CTAS_PER_SM = {"sorted": 2, "unsorted": 3, "per_row": 3, "staged": 2}
+# Row 1 copies a segment of at least this many bytes with one bulk copy
+# and shorter ones with 16-byte cp.async: the copy engine pays about the
+# same per copy whatever its size, and most segments are 1-4 rows.
+_BULK_MIN = 256
+# How row 1 fills the ring: "bulk" (the above), or "cp_async", the first
+# design's class loops with 16-byte cp.async from every thread.  Windows
+# whose rows are not 16-byte multiples always take the loops.  Module
+# state so that chip_smoke.py can time both on the same inputs.
+COPY_ROUTES = ("bulk", "cp_async")
+SORTED_ROUTE = "bulk"
+# Timing probes (chip_smoke.py only; the output is then wrong): skip the
+# compute, or issue no copies, to time the other half of a kernel alone.
+TIMING_PROBES = {None: 0, "copy_only": 1, "compute_only": 2}
+TIMING_PROBE = None
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "xct_spmm.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -133,18 +172,93 @@ def _align16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def smem_bytes(r: int, k: int, buf: int, f: int, store_bytes: int,
-               vals_bytes: int | None = None) -> int:
-    """Dynamic shared memory of one CTA: the ``[BUF, F]`` window plus the
-    stage's ``R*K`` values and int16 indices, each 16-byte aligned (the
-    layout ``smem_layout`` in ``csrc/xct_spmm.cu`` computes).
-    ``vals_bytes`` defaults to ``store_bytes``."""
-    vb = store_bytes if vals_bytes is None else vals_bytes
+def smem_bytes(r: int, buf: int, f: int, store_bytes: int, depth: int,
+               part_buffers: int, acc: bool = True) -> int:
+    """Dynamic shared memory of one CTA (the layout ``smem_layout`` in
+    ``csrc/xct_spmm.cu`` computes): ``depth`` ring slots of one
+    ``[BUF, F]`` window each (rows padded to 16 bytes), ``part_buffers``
+    fp32 ``[R, F]`` stage partials, the fp32 ``[R, F]`` accumulator when
+    one CTA owns the row-block (``acc``), and one 8-byte mbarrier per
+    slot; each region 16-byte aligned."""
+    rf = r * f * 4
     return (
-        _align16(buf * f * store_bytes)
-        + _align16(r * k * vb)
-        + _align16(r * k * 2)
+        depth * buf * _align16(f * store_bytes)
+        + _align16(part_buffers * rf)
+        + (_align16(rf) if acc else 0)
+        + depth * 8
     )
+
+
+class Geometry(NamedTuple):
+    """How one launch covers the shard, as the kernel receives it:
+    ``depth`` ring slots, ``inflight`` stages computed at once,
+    ``cluster`` CTAs per row-block, each taking ``stages_per_cta``
+    stages, ``part_buffers`` stage partials in shared memory, ``smem``
+    bytes of dynamic shared memory."""
+
+    depth: int
+    inflight: int
+    cluster: int
+    stages_per_cta: int
+    part_buffers: int
+    smem: int
+
+    @property
+    def lookahead(self) -> int:
+        """Rounds of windows issued ahead of the round being computed."""
+        return self.depth // self.inflight - 1
+
+
+def launch_geometry(staging: str, s: int, r: int, k: int, buf: int, f: int,
+                    store_bytes: int) -> Geometry:
+    """Ring depth, stages in flight and cluster size of one launch.
+
+    A thread computes one row of one stage on a 16-byte vector of ``F``,
+    so a stage takes ``R * ceil(F * store_bytes / 16)`` threads and the
+    256-thread CTA computes up to ``256 // that`` stages at once.  Row 4
+    (``staging="staged"``) splits each row-block's ``S`` stages over a
+    cluster of up to 8 CTAs of at least that many stages each.  The ring
+    then holds ``inflight`` slots per round plus as many rounds ahead
+    (at most 3) as fit in the shared memory of ``_CTAS_PER_SM[staging]``
+    CTAs per SM (else of one): the widest ``inflight`` that still leaves
+    one round of lookahead wins, and a window that fits only once runs
+    single-buffered (depth 1).  Raises ``ValueError`` when not even one
+    window fits.
+    """
+    s = max(int(s), 1)
+    budget = min(SMEM_LIMIT, _SM_SMEM // _CTAS_PER_SM[staging] - 1024)
+    row = _align16(f * store_bytes)
+    group = min(r * (row // 16), _THREADS)
+    groups = _THREADS // group
+    if staging == "staged":
+        nloc = max(-(-s // _MAX_CLUSTER), min(groups, s))
+        cluster = -(-s // nloc)
+    else:
+        nloc, cluster = s, 1
+
+    def geometry(p, look):
+        parts = nloc if cluster > 1 else 2 * p
+        depth = (look + 1) * p
+        return Geometry(depth, p, cluster, nloc, parts,
+                        smem_bytes(r, buf, f, store_bytes, depth, parts,
+                                   acc=cluster == 1))
+
+    for limit in (budget, SMEM_LIMIT):
+        for p in range(min(groups, nloc), 0, -1):
+            rounds = -(-nloc // p)
+            for look in range(min(_MAX_LOOKAHEAD, rounds - 1), -1, -1):
+                geo = geometry(p, look)
+                if geo.smem <= limit and (look >= 1 or rounds == 1):
+                    return geo
+    geo = geometry(1, 0)  # single-buffered
+    if geo.smem > SMEM_LIMIT:
+        raise ValueError(
+            f"kernel shared memory {geo.smem} B exceeds the {SMEM_LIMIT} B "
+            f"a CTA may use (R={r}, K={k}, BUF={buf}, F={f}); the window "
+            f"BUF*F = {buf}*{f} x {store_bytes} B dominates -- shrink the "
+            "window (BUF) or fuse (F)"
+        )
+    return geo
 
 
 def _nvcc() -> str:
@@ -204,7 +318,7 @@ def _library():
             lib = ctypes.CDLL(str(path))
             for entry in ENTRIES:
                 fn = getattr(lib, _entry_name(*entry))
-                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [
                     ctypes.c_void_p
                 ]
                 fn.restype = ctypes.c_int
@@ -301,19 +415,16 @@ def spmm_block_ell_staged_plain(inds, vals, window, *,
                          window.shape[-1], compute_dtype)
 
 
-def _check(staging, inds, vals, x, compute_dtype, *, tables, scales):
-    tensors = {"inds": inds, "vals": vals, "x": x, **tables,
-               "scales": scales}
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def _table_name(staging):
+    return "winsegs" if staging in ("sorted", "unsorted") else "winmap"
+
+
+def _check_types(staging, inds, vals, x, compute_dtype, table, segoff,
+                 scales):
     if inds.dtype != torch.int16:
         raise ValueError(f"inds must be int16, got {inds.dtype}")
-    for name, t in (*tables.items(), ("scales", scales)):
+    for name, t in ((_table_name(staging), table), ("segoff", segoff),
+                    ("scales", scales)):
         if t is not None and t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     entry = (staging, vals.dtype, x.dtype, compute_dtype)
@@ -333,59 +444,89 @@ def _check(staging, inds, vals, x, compute_dtype, *, tables, scales):
             f"{compute_dtype} ({staging}); entries: "
             f"{[_entry_name(*e) for e in ENTRIES if e[0] == staging]}"
         )
-    b, s, r, k = inds.shape
+
+
+# The chunked row 4 calls the wrapper hundreds of times per application,
+# so what does not change between calls is checked and sized once: the
+# dtype signatures _check_types accepted, and the (entry, geometry) of
+# each staging, dtypes and shard shape.
+_CHECKED: set = set()
+_PLANS: dict = {}
+
+
+def _check(staging, inds, vals, x, compute_dtype, table, segoff, scales):
+    dev = x.get_device()
+    tensors = (inds, vals, x, table, segoff, scales)
+    for i, t in enumerate(tensors):
+        if t is not None and (t.get_device() != dev
+                              or not t.is_contiguous()):
+            name = ("inds", "vals", "x", _table_name(staging), "segoff",
+                    "scales")[i]
+            if t.get_device() != dev:
+                raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+            raise ValueError(f"{name} must be contiguous")
+    sig = (staging, inds.dtype, vals.dtype, x.dtype, compute_dtype,
+           table is None or table.dtype, segoff is None or segoff.dtype,
+           scales is None or scales.dtype)
+    if sig not in _CHECKED:
+        _check_types(staging, inds, vals, x, compute_dtype, table, segoff,
+                     scales)
+        _CHECKED.add(sig)
     if vals.shape != inds.shape:
         raise ValueError(f"vals {tuple(vals.shape)} != inds {tuple(inds.shape)}")
-    if scales is not None and scales.shape != (b, s):
-        raise ValueError(f"scales must be [B, S] = {(b, s)}, got "
-                         f"{tuple(scales.shape)}")
-    if r * x.shape[-1] > _THREADS * _MAX_OUT:
-        raise ValueError(
-            f"R*F = {r}*{x.shape[-1]} exceeds the kernel's "
-            f"{_THREADS * _MAX_OUT} outputs per row-block; shrink "
-            "rows_per_block or fuse"
-        )
+    if scales is not None and scales.shape != inds.shape[:2]:
+        raise ValueError(f"scales must be [B, S] = {tuple(inds.shape[:2])}, "
+                         f"got {tuple(scales.shape)}")
+    return dev
+
+
+def _plan(staging, vals_dtype, x_dtype, compute_dtype, s, r, k, buf, f, sb):
+    key = (staging, vals_dtype, x_dtype, compute_dtype, s, r, k, buf, f)
+    hit = _PLANS.get(key)
+    if hit is None:
+        geo = launch_geometry(staging, s, r, k, buf, f, sb)
+        fn = getattr(_library(),
+                     _entry_name(staging, vals_dtype, x_dtype, compute_dtype))
+        hit = _PLANS[key] = (fn, geo, (f * sb) % 16 == 0)
+    return hit
 
 
 def _launch(staging, inds, vals, x, compute_dtype, *, buf, table=None,
             segoff=None, scales=None, nseg=0, noff=0):
     """Check, size and launch one kernel entry on the current stream."""
-    tables = {"winsegs" if staging in ("sorted", "unsorted") else "winmap":
-              table, "segoff": segoff}
-    _check(staging, inds, vals, x, compute_dtype, tables=tables,
-           scales=scales)
+    dev = _check(staging, inds, vals, x, compute_dtype, table, segoff, scales)
     b, s, r, k = inds.shape
     f = x.shape[-1]
-    sb = x.element_size()
-    need = smem_bytes(r, k, buf, f, sb, vals.element_size())
-    if need > SMEM_LIMIT:
+    fn, geo, rows16 = _plan(staging, vals.dtype, x.dtype, compute_dtype, s, r,
+                            k, buf, f, x.element_size())
+    if SORTED_ROUTE not in COPY_ROUTES:
         raise ValueError(
-            f"kernel shared memory {need} B exceeds the {SMEM_LIMIT} B a "
-            f"CTA may use (R={r}, K={k}, BUF={buf}, F={f}); the window "
-            f"BUF*F = {buf}*{f} x {sb} B dominates -- shrink the window "
-            "(BUF) or fuse (F)"
-        )
-    vec = int((f * sb) % 16 == 0 and x.data_ptr() % 16 == 0)
-    out = torch.empty((b, r, f), dtype=torch.float32, device=x.device)
-    fn = getattr(
-        _library(), _entry_name(staging, vals.dtype, x.dtype, compute_dtype)
+            f"SORTED_ROUTE {SORTED_ROUTE!r}; one of {COPY_ROUTES}")
+    x_ptr = x.data_ptr()
+    bulk = rows16 and x_ptr % 16 == 0 and (
+        staging == "staged"
+        or (staging == "sorted" and SORTED_ROUTE == "bulk"))
+    route = (int(bulk) | (TIMING_PROBES[TIMING_PROBE] << 1)
+             | ((_BULK_MIN // 16) << 4))
+    out = x.new_empty((b, r, f), dtype=torch.float32)
+    args = (
+        inds.data_ptr(), vals.data_ptr(), x_ptr,
+        None if table is None else table.data_ptr(),
+        None if segoff is None else segoff.data_ptr(),
+        None if scales is None else scales.data_ptr(), out.data_ptr(),
+        b, s, r, k, buf, f, nseg, noff, geo.depth, geo.inflight, geo.cluster,
+        route, torch._C._cuda_getCurrentRawStream(dev),
     )
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            inds.data_ptr(), vals.data_ptr(), x.data_ptr(), ptr(table),
-            ptr(segoff), ptr(scales), out.data_ptr(),
-            b, s, r, k, buf, f, nseg, noff, vec, stream,
-        )
+    if dev == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(
             f"xct_spmm {staging} kernel launch failed: cudaError {err} "
             f"(B={b}, S={s}, R={r}, K={k}, BUF={buf}, F={f}, "
-            f"{vals.dtype}/{x.dtype}/{compute_dtype})"
+            f"{vals.dtype}/{x.dtype}/{compute_dtype}, {geo})"
         )
     LAUNCHES[staging + ("_q" if scales is not None else "")] += 1
     return out

@@ -28,7 +28,14 @@ SWEEP = [
     (3, 1, 32, 16, 64, 256, 8),
     (2, 3, 8, 32, 40, 96, 16),
     (5, 2, 16, 16, 24, 64, 2),
+    # the launch geometry's edges: S=7 is no multiple of the stages in
+    # flight (4 at f16) nor of row 4's cluster (2, 4 or 7 CTAs); K=12
+    # leaves a partial register chunk and F=3 rows no 16-byte multiple
+    (3, 7, 32, 32, 64, 256, 16),
+    (2, 9, 16, 12, 24, 64, 3),
 ]
+# R=32 with fuse=64: wider than the first kernel design took (R*F <= 1024)
+WIDE = (3, 5, 32, 16, 48, 128, 64)
 TORCH = {"f64": torch.float64, "f32": torch.float32, "f16": torch.float16,
          "bf16": torch.bfloat16, "int8": torch.int8,
          "fp8": torch.float8_e4m3fn}
@@ -169,6 +176,82 @@ def test_cuda_quantized_kernels(cuda, shape, qdtype, staging):
     row1 = txs.spmm_block_ell(inds, wide, winmap, x16.float(),
                               winsegs=segs, segoff=off)
     assert torch.equal(out, row1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", PAIRS)
+def test_cuda_wide_fuse_rows_1_1q_4(cuda, pair):
+    """R=32, F=64: rows 1 and 4 equal their plain versions and each
+    other bit for bit for every pair; row 1q (int8 and fp8) its plain
+    version and row 1's f32 kernel on the dequantized values."""
+    storage, compute = pair
+    ct = TORCH[compute]
+    inds, vals, winmap, x, segs, off = _cuda_inputs(
+        WIDE, storage, cuda, _seed("wide", pair)
+    )
+    row1 = txs.spmm_block_ell(inds, vals, winmap, x, compute_dtype=ct,
+                              winsegs=segs, segoff=off)
+    window = x[winmap.long()].contiguous()
+    row4 = txs.spmm_block_ell_staged(inds, vals, window, compute_dtype=ct)
+    plain = txs.spmm_block_ell_plain(inds, vals, winmap, x,
+                                     compute_dtype=ct)
+    torch.cuda.synchronize()
+    assert torch.equal(row1, plain)
+    assert torch.equal(row4, plain)
+    if pair != ("f32", "f32"):
+        return
+    for qdtype in (torch.int8, torch.float8_e4m3fn):
+        q, e = (t.to(cuda) for t in tprec.quantize_block_vals(vals.cpu(),
+                                                              qdtype))
+        x16 = x.to(torch.float16)
+        out = txs.spmm_block_ell(inds, q, winmap, x16, scales=e,
+                                 winsegs=segs, segoff=off)
+        assert torch.equal(out, txs.spmm_block_ell_plain(
+            inds, q, winmap, x16, scales=e))
+        assert torch.equal(out, txs.spmm_block_ell(
+            inds, tprec.dequantize_block_vals(q, e), winmap, x16.float(),
+            winsegs=segs, segoff=off))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["bulk", "cp_async"])
+def test_cuda_sorted_routes_give_the_same_bits(cuda, route, monkeypatch):
+    """Row 1 fills its ring by one bulk copy per segment or by the class
+    loops with cp.async: the same windows, so the same bits."""
+    monkeypatch.setattr(txs, "SORTED_ROUTE", route)
+    for i, shape in enumerate(SWEEP + [WIDE]):
+        inds, vals, winmap, x, segs, off = _cuda_inputs(
+            shape, "f16", cuda, _seed("route", i)
+        )
+        out = txs.spmm_block_ell(inds, vals, winmap, x, winsegs=segs,
+                                 segoff=off)
+        plain = txs.spmm_block_ell_plain(inds, vals, winmap, x)
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain), shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_chunked_gather_matches_row1(cuda, quantized):
+    """Row 4 as ``apply_operator(staging="gather")`` runs it: several
+    chunks of row-blocks, each one launch of clusters, give the fused
+    path's bits."""
+    b, s, r, k, buf, c, f = 10, 7, 32, 32, 64, 512, 16
+    rng = np.random.default_rng(_seed("chunked", quantized))
+    inds, vals, winmap, x = (torch.from_numpy(a).to(cuda) for a in
+                             _random_ell(rng, b, s, r, k, buf, c, f))
+    kw = {}
+    if quantized:
+        vals, kw["scales"] = (t.to(cuda) for t in tprec.quantize_block_vals(
+            vals.cpu(), torch.int8))
+    fused = tops.apply_operator(inds, vals, winmap, x, **kw)
+    for bpc in (1, 3, 4, None):
+        txs.reset_launches()
+        out = tops.apply_operator(inds, vals, winmap, x, staging="gather",
+                                  blocks_per_call=bpc, **kw)
+        torch.cuda.synchronize()
+        assert txs.LAUNCHES["staged"] == (-(-b // bpc) if bpc else 1)
+        assert torch.equal(out, fused), bpc
 
 
 @pytest.mark.gpu

@@ -220,17 +220,124 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
 
 
 def test_shared_memory_footprint():
-    # the slice's proj shard: R=K=32, BUF=776, F=16
-    assert txs.smem_bytes(32, 32, 776, 16, 2) == 776 * 16 * 2 + 2048 + 2048
-    assert txs.smem_bytes(32, 32, 776, 16, 8) == 776 * 16 * 8 + 8192 + 2048
-    assert txs.smem_bytes(32, 32, 776, 16, 8) < txs.SMEM_LIMIT
-    # odd sizes are padded to 16-byte boundaries
-    assert txs.smem_bytes(8, 8, 16, 1, 4) == 64 + 256 + 128
-    assert txs.smem_bytes(1, 1, 3, 1, 2) == 16 * 3
-    # the quantized kernels: f16 window, 1-byte values
-    assert txs.smem_bytes(32, 32, 776, 16, 2, 1) == 776 * 16 * 2 + 1024 + 2048
-    # the staged kernel under q8/fp8: f16 window, f32 values
-    assert txs.smem_bytes(32, 32, 416, 16, 2, 4) == 416 * 16 * 2 + 4096 + 2048
+    """The CTA's shared memory: a ring of windows, the stage partials,
+    the accumulator and one mbarrier per ring slot."""
+    # the slice's proj shard in f16 (R=32, BUF=776, F=16): 8 ring slots,
+    # 8 partials (two rounds of 4 stages), the accumulator, 8 barriers
+    assert txs.smem_bytes(32, 776, 16, 2, 8, 8) == (
+        8 * 776 * 16 * 2 + 8 * 2048 + 2048 + 8 * 8)
+    # f64: two slots of 776 rows of 128 B
+    assert txs.smem_bytes(32, 776, 16, 8, 2, 2) == (
+        2 * 776 * 128 + 2 * 2048 + 2048 + 16)
+    assert txs.smem_bytes(32, 776, 16, 8, 2, 2) < txs.SMEM_LIMIT
+    # window rows are padded to 16 bytes, every region to 16 bytes
+    assert txs.smem_bytes(8, 16, 1, 4, 1, 2) == 16 * 16 + 64 + 32 + 8
+    assert txs.smem_bytes(1, 3, 1, 2, 1, 2) == 3 * 16 + 16 + 16 + 8
+    assert txs.smem_bytes(8, 16, 3, 8, 2, 4) == 2 * 16 * 32 + 384 + 96 + 16
+    # row 4's cluster CTAs keep all their stage partials, no accumulator
+    assert txs.smem_bytes(32, 776, 16, 2, 4, 4, acc=False) == (
+        4 * 776 * 32 + 4 * 2048 + 32)
+    # R*F is bounded by shared memory only: R=32, F=64 in f32
+    assert txs.smem_bytes(32, 416, 64, 4, 2, 2) == (
+        2 * 416 * 256 + 2 * 8192 + 8192 + 16)
+    for staging in ("sorted", "staged"):
+        geo = txs.launch_geometry(staging, 26, 32, 32, 776, 16, 2)
+        assert geo.smem == txs.smem_bytes(
+            32, 776, 16, 2, geo.depth, geo.part_buffers,
+            acc=geo.cluster == 1)
+
+
+# (S, BUF) of the n=512 shards: proj [6648, 26, 32, 32] with BUF 776,
+# back [8192, 20, 32, 32] with BUF 416
+N512 = {"proj": (26, 776), "back": (20, 416)}
+
+
+@pytest.mark.parametrize("store_bytes", [8, 4, 2])
+@pytest.mark.parametrize("name", ["proj", "back"])
+@pytest.mark.parametrize("staging", ["sorted", "unsorted", "per_row",
+                                     "staged"])
+def test_launch_geometry_at_the_n512_shards(store_bytes, name, staging):
+    """At the slice's shapes (R=K=32, F=16) every pair, f64 included,
+    gets a ring of at least two windows, so copies overlap the compute;
+    the stages in flight fill the 256 threads; row 4 splits the stages
+    of a row-block over a cluster of at most 8 CTAs."""
+    s, buf = N512[name]
+    geo = txs.launch_geometry(staging, s, 32, 32, buf, 16, store_bytes)
+    assert geo.depth >= 2
+    assert geo.smem <= txs.SMEM_LIMIT
+    assert geo.depth % geo.inflight == 0
+    threads_per_stage = 32 * (16 * store_bytes // 16)
+    assert geo.inflight * threads_per_stage <= 256
+    if staging == "staged":
+        assert 2 <= geo.cluster <= 8
+        # every CTA of the cluster has stages, and they cover S
+        assert (geo.cluster - 1) * geo.stages_per_cta < s
+        assert geo.cluster * geo.stages_per_cta >= s
+        assert geo.part_buffers == geo.stages_per_cta
+    else:
+        assert geo.cluster == 1 and geo.stages_per_cta == s
+        assert geo.lookahead >= 1  # windows issued a round ahead
+        assert geo.part_buffers == 2 * geo.inflight
+    if store_bytes == 2 and staging == "sorted":
+        # f16, two CTAs per SM: 2 or 3 stages at once (64 threads each),
+        # one round of windows ahead
+        assert (geo.inflight, geo.depth) == {"proj": (2, 4),
+                                             "back": (3, 6)}[name]
+        assert geo.smem <= 233_472 // 2 - 1024
+
+
+def test_launch_geometry_single_buffered_and_too_large():
+    """A window that fits only once runs single-buffered (depth 1); one
+    that does not fit at all raises, naming BUF and F."""
+    geo = txs.launch_geometry("sorted", 5, 32, 32, 3000, 16, 4)
+    assert (geo.depth, geo.inflight, geo.lookahead) == (1, 1, 0)
+    geo = txs.launch_geometry("staged", 5, 32, 32, 3000, 16, 4)
+    assert geo.depth == 1 and geo.cluster * geo.stages_per_cta >= 5
+    with pytest.raises(ValueError, match="BUF=4000, F=16"):
+        txs.launch_geometry("sorted", 1, 8, 8, 4000, 16, 4)
+    # a single round (S no larger than the stages in flight) needs no
+    # lookahead: every stage gets its own slot
+    geo = txs.launch_geometry("sorted", 3, 32, 32, 64, 16, 2)
+    assert (geo.depth, geo.inflight) == (3, 3)
+    # F wider than the CTA's threads: one stage at a time, threads loop
+    # over the vectors of F (R=32, F=64 in f32 is 512 vectors)
+    geo = txs.launch_geometry("sorted", 3, 32, 16, 48, 64, 4)
+    assert geo.inflight == 1 and geo.lookahead >= 1
+
+
+@pytest.mark.parametrize("staging", ["sorted", "staged", "q8"])
+def test_wide_fuse_plain_matches_jax_kernel(staging):
+    """R=32, F=64 (the paper's R with fuse=64), which the first kernel
+    design refused: the plain versions against the JAX Pallas kernels."""
+    b, s, r, k, buf, c, f = 2, 3, 32, 16, 48, 128, 64
+    rng = np.random.default_rng(_seed("wide", staging))
+    inds, vals, winmap, x = _random_ell(rng, b, s, r, k, buf, c, f)
+    tol = _tol("f16", "f32")
+    if staging == "staged":
+        window = x[winmap]
+        out = txs.spmm_block_ell_staged(
+            _as(True, inds), _as(True, vals, "f16"),
+            _as(True, window, "f16"))
+        ref = jax_staged(_as(False, inds), _as(False, vals, "f16"),
+                         _as(False, window, "f16"))
+    else:
+        segs, off = _fused_tables(winmap, "sorted", buf)
+        kw, jkw = {}, {}
+        tv, jv = _as(True, vals, "f16"), _as(False, vals, "f16")
+        if staging == "q8":
+            tv, kw["scales"] = tprec.quantize_block_vals(
+                torch.from_numpy(vals), torch.int8)
+            jv, jkw["scales"] = jprec.quantize_block_vals(
+                jnp.asarray(vals), jnp.int8)
+        out = txs.spmm_block_ell(
+            _as(True, inds), tv, _as(True, winmap), _as(True, x, "f16"),
+            winsegs=_as(True, segs), segoff=_as(True, off), **kw)
+        ref = jax_spmm(
+            _as(False, inds), jv, _as(False, winmap), _as(False, x, "f16"),
+            winsegs=_as(False, segs), segoff=_as(False, off), **jkw)
+    assert out.shape == (b, r, f)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                               rtol=tol, atol=tol)
 
 
 def test_kernel_entries_cover_every_policy_and_path():
