@@ -24,9 +24,8 @@ Phases, each fatal on failure:
    share (run after phase 5: a profiler session slows later launches);
 5. per-application times of every kernel, its plain version and
    ``torch.sparse.mm`` (cuSPARSE, used here only as a yardstick) beside
-   the memory-bandwidth bound; for row 1 also its two ring-filling
-   routes and its time with no compute and with no copies (timing
-   probes); for row 4 the device time of its chunked launches
+   the memory-bandwidth bound; row 4 chunked as ``apply_operator``
+   runs it (the gather aside), with the device time of those launches
    (``torch.profiler``); the solves' wall time and peak memory.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
@@ -263,11 +262,18 @@ def check_shards(plan, device):
         t = operator_tensors(op, device)
         _, b, s, r, k = op.inds.shape
         buf = op.winmap.shape[-1]
-        for staging in ("sorted", "staged"):
-            for storage, _ in xs.KERNEL_PAIRS[:3]:
+        # each entry's launch geometry: the ring sized for the CTAs per
+        # SM its staging wants and its registers allow
+        for staging in ("sorted", "unsorted", "per_row", "staged"):
+            for storage, compute in xs.KERNEL_PAIRS[:3]:
                 sb = torch.empty((), dtype=storage).element_size()
-                log(f"geometry {name} {staging} {sb} B window values: "
-                    f"{xs.launch_geometry(staging, s, r, k, buf, FUSE, sb)}")
+                resident = (xs._resident(xs._entry_name(
+                    staging, storage, storage, compute))
+                    if device.type == "cuda" else None)
+                geo = xs.launch_geometry(staging, s, r, k, buf, FUSE, sb,
+                                         resident=resident)
+                log(f"geometry {name} {staging} {sb} B window values, "
+                    f"{resident} CTAs resident: {geo}")
         unsorted = unsorted_table(t["winmap"], device)
         x = torch.from_numpy(
             np.random.default_rng(7).normal(
@@ -705,46 +711,8 @@ def times(plan, a, device):
             p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
                 t["inds"], vals, t["winmap"], x, compute_dtype=f32), 3,
                 warm=1)
-            # the ring filled by the class loops with 16-byte cp.async from
-            # every thread instead of the bulk route: same bits, timed in
-            # turns (bulk, cp_async, cp_async, bulk)
-            routes = {}
-            for route in ("bulk", "cp_async", "cp_async", "bulk"):
-                xs.SORTED_ROUTE = route
-                routes.setdefault(route, []).append(cuda_ms(
-                    lambda: xs.spmm_block_ell(
-                        t["inds"], vals, t["winmap"], x, compute_dtype=f32,
-                        winsegs=t["winsegs"], segoff=t["segoff"]), 20))
-                if route == "cp_async":
-                    other = xs.spmm_block_ell(
-                        t["inds"], vals, t["winmap"], x, compute_dtype=f32,
-                        winsegs=t["winsegs"], segoff=t["segoff"])
-            xs.SORTED_ROUTE = "bulk"
-            same = torch.equal(other, xs.spmm_block_ell(
-                t["inds"], vals, t["winmap"], x, compute_dtype=f32,
-                winsegs=t["winsegs"], segoff=t["segoff"]))
-            if not same:
-                raise AssertionError(f"row 1 {variant} {name}: the cp_async "
-                                     "route differs from the bulk route")
-            del other
-            # what bounds it: the same launches with no compute, and with
-            # no copies (timing probes; their outputs are discarded)
-            halves = {}
-            for probe in ("copy_only", "compute_only"):
-                xs.TIMING_PROBE = probe
-                try:
-                    halves[probe + "_ms"] = round(cuda_ms(
-                        lambda: xs.spmm_block_ell(
-                            t["inds"], vals, t["winmap"], x,
-                            compute_dtype=f32, winsegs=t["winsegs"],
-                            segoff=t["segoff"]), 20), 4)
-                finally:
-                    xs.TIMING_PROBE = None
             record("row1", variant, name, k_ms, p_ms, lib_ms,
-                   bound(slots, sb, op.n_cols_pad * FUSE * sb, out_bytes),
-                   bulk_ms=[round(v, 4) for v in routes["bulk"]],
-                   cp_async_ms=[round(v, 4) for v in routes["cp_async"]],
-                   **halves)
+                   bound(slots, sb, op.n_cols_pad * FUSE * sb, out_bytes))
 
         vals = t["vals"].to(f16)
         x_bytes = op.n_cols_pad * FUSE * 2
@@ -770,17 +738,15 @@ def times(plan, a, device):
         bpc = ops._gather_blocks_per_call(b, s, buf, FUSE, 2)
         spans = [(lo, min(b, lo + bpc)) for lo in range(0, b, bpc)]
         window = x16[t["winmap"].long()]  # the whole [B, S, BUF, F] tensor
-        # the launches over chunk inputs prepared beforehand, as the
-        # gather loop of apply_operator hands them over; and with the
-        # three slices per chunk inside the timed loop, as this loop was
-        # first timed
-        chunks = [(t["inds"][lo:hi], vals[lo:hi], window[lo:hi])
-                  for lo, hi in spans]
-        k_ms = cuda_ms(lambda: [xs.spmm_block_ell_staged(*c)
-                                for c in chunks], 10)
-        sliced_ms = cuda_ms(lambda: [xs.spmm_block_ell_staged(
-            t["inds"][lo:hi], vals[lo:hi], window[lo:hi]) for lo, hi in spans],
-            10)
+
+        def chunk_loop(inds=t["inds"], vals=vals, window=window, spans=spans):
+            """apply_operator's gather loop without the gather: each chunk
+            sliced and launched"""
+            return [xs.spmm_block_ell_staged(inds[lo:hi], vals[lo:hi],
+                                             window[lo:hi])
+                    for lo, hi in spans]
+
+        k_ms = cuda_ms(chunk_loop, 10)
         one_ms = cuda_ms(lambda: xs.spmm_block_ell_staged(
             t["inds"], vals, window), 10)
         g_ms = cuda_ms(lambda: [x16[t["winmap"][lo:hi].long()]
@@ -792,12 +758,11 @@ def times(plan, a, device):
         record("row4", "mixed", name, k_ms, p_ms, lib_ms,
                bound(slots, 2, x_bytes, out_bytes, extra=window.numel() * 2),
                launches_per_apply=len(spans), rows_per_chunk=bpc,
-               sliced_ms=round(sliced_ms, 4), gather_ms=round(g_ms, 4),
-               one_launch_ms=round(one_ms, 4),
+               gather_ms=round(g_ms, 4), one_launch_ms=round(one_ms, 4),
                apply_operator_ms=round(a_ms, 4))
         # the chunked loop's device time, taken after every other timing:
         # a profiler session leaves each later launch slower on the host
-        profiled.append((name, chunks))
+        profiled.append((name, chunk_loop))
         del window
         # row 1q: int8 and fp8 values on the class-sorted staging
         for variant, qdtype in (("q8", torch.int8),
@@ -816,9 +781,8 @@ def times(plan, a, device):
                    bound(slots, 1, x_bytes, out_bytes, extra=b * s * 4))
             del q, e
         del t
-    for name, chunks in profiled:
-        dev_ms = device_ms(lambda: [xs.spmm_block_ell_staged(*c)
-                                    for c in chunks])
+    for name, chunk_loop in profiled:
+        dev_ms = device_ms(chunk_loop)
         out["row4"]["mixed"][name]["device_ms"] = round(dev_ms, 4)
         log(f"time row4 mixed {name}: device time of the chunked launches "
             f"{dev_ms:.4f} ms (torch.profiler)")

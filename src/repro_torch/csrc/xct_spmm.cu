@@ -31,9 +31,10 @@
 //   * Window ring.  The windows live in a ring of D = (L + 1) * P slots
 //     filled L rounds ahead of the compute, each slot completing on its
 //     own mbarrier.  kernels/xct_spmm.py:launch_geometry sizes it from
-//     shared memory for two CTAs per SM (the n=512 proj shard in f16: P
-//     = 2, D = 4), falling back to one CTA with the whole 227 KB (f64:
-//     D = 2) and to a single slot where only one window fits.  Copies
+//     shared memory for the CTAs per SM its staging wants and the entry's
+//     registers allow (<name>_occupancy below; the n=512 proj shard in
+//     f16: P = 2, D = 4), falling back to one CTA with the whole 227 KB
+//     (f64: D = 2) and to a single slot where only one window fits.  Copies
 //     are issued by the last warps of the CTA, which compute nothing
 //     while P < 4, and issuing of round j also prefetches round j+1's
 //     table rows and round j's inds / vals tiles into L2.
@@ -55,10 +56,12 @@
 //             (most of a table: 1-4 rows) with 16-byte cp.async from its
 //             lanes, all completing on the slot's mbarrier.  The copy engine
 //             costs about the same per copy whatever its size, so one bulk
-//             copy per segment was bound by the count of copies.  The first
-//             design's class loops remain as the route "cp_async" (every
-//             thread, 16-byte cp.async) for the A/B and for rows that are not
-//             16-byte multiples (small F), which copy element by element.
+//             copy per segment was bound by the count of copies; kBulkMin
+//             below is the threshold.  Filling the same ring through the
+//             first design's class loops with 16-byte cp.async from every
+//             thread took 2.3-2.8x as long (PERF.md), so the loops remain
+//             only for rows that are not 16-byte multiples (small F) or an
+//             x that is not 16-byte aligned, which copy element by element.
 //             Bound on this card: the packed inds + vals stream, 4 B per
 //             padded slot at f16 (about 0.71 GB per projector application at
 //             n=512, 384 angles), read once from device memory, x (8 MB at
@@ -70,10 +73,13 @@
 //   kUnsorted (row 2)  replaces _spmm_fused_kernel_coalesced (:193-246,
 //             wrapper _pallas_fused_coalesced :598-626).  The table is in
 //             run order and carries no class offsets: every slot holds
-//             its own len (0 = pad).  Each warp takes one slot at a time
-//             and its lanes copy the slot's len rows (the first design's
-//             loop, now with 16-byte cp.async into the ring).  Bound: the same
-//             stream as row 1, plus the work of walking every slot.
+//             its own len (0 = pad).  The first design gave each warp one
+//             slot at a time, so every slot cost a dependent load of its
+//             descriptor (312 slots a stage on the n=512 proj shard); now
+//             each warp loads 32 slots' descriptors at once, one per lane
+//             and interleaved over the warps, and its lanes copy its live
+//             slots' rows in turn with 16-byte cp.async into the ring.  Bound: the same stream as row 1,
+//             plus the table of every slot.
 //   kPerRow   (row 3)  replaces _spmm_fused_kernel (:141-190, wrapper
 //             _pallas_fused_per_row :572-595).  Window row j is
 //             x[winmap[b, s, j]]: BUF row copies per stage, all threads
@@ -108,12 +114,16 @@
 // (b, s).  It shares row 1's staging, so the window traffic bounds it
 // as it bounds row 1.
 //
-// Registers per thread of the redesigned entries (nvcc 12.8, -O3,
-// -Xptxas -v, sm_90a; chip_smoke.py logs every entry's line): row 1
-// f16/f32 106, f16/f16 105, bf16/f32 106, bf16/bf16 128, f32 94, f64 126;
-// row 1q int8 and fp8 102; row 4 f16/f32 72, f32 values on f16 windows
-// 79, f32 92, f64 94.  No entry of the 31 spills; __launch_bounds__ caps
-// them at 128 so that two CTAs fit on an SM.
+// Registers per thread (nvcc 12.8, -O3, -Xptxas -v, sm_90a;
+// chip_smoke.py logs every entry's line): row 1 f16/f32 107, f16/f16
+// 109, bf16/f32 107, bf16/bf16 128, f32 100, f64 126; row 1q int8 and
+// fp8 106; row 4 f16 72, bf16/f32 69, f32 values on f16 windows 79,
+// bf16/bf16 122, f32 90, f64 94; row 2 f16 and bf16/f32 101, bf16/bf16
+// 128, f32 117, f64 126, int8 and fp8 96; row 3 f16 and bf16/f32 72,
+// bf16/bf16 119, f32 88, f64 100, int8 and fp8 72.  No entry of the 31
+// spills; __launch_bounds__ caps them at 128 so that two CTAs fit on an
+// SM.  At 80 or fewer a third CTA fits, which rows 2 and 3 want;
+// launch_geometry asks each entry's occupancy rather than assume it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -131,13 +141,13 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 8;  // indices and values per register chunk
 
+// kSorted copies a segment of at least this many bytes with one
+// cp.async.bulk and shorter ones with 16-byte cp.async: the copy engine
+// pays about the same per copy whatever its size, and most segments are
+// 1-4 rows (a threshold of 512 B was slower on the n=512 shards)
+constexpr uint32_t kBulkMin = 256;
+
 enum Staging : int { kSorted = 0, kUnsorted = 1, kPerRow = 2, kStaged = 3 };
-// how a window reaches its ring slot: 16-byte cp.async (or element
-// copies) by every thread through the staging loops, or one
-// cp.async.bulk per contiguous run (kSorted, kStaged)
-enum Route : int { kAsync = 0, kBulk = 1 };
-// timing probes: skip the compute, or issue no copies (slots stay stale)
-enum Probe : int { kProbeNoCompute = 1, kProbeNoCopy = 2 };
 
 // ---- one step part + v * x in the compute type C ---------------------
 // Rounded as the reference computes it on its CPU validation platform
@@ -239,14 +249,13 @@ struct Geom {
   int inflight;    // stages computed at once, P
   int cluster;     // CTAs per row-block (row 4 only; 1 elsewhere)
   int nloc;        // stages per CTA: ceil(S / cluster)
-  int route;       // kAsync or kBulk
+  int bulk;        // kSorted / kStaged fill slots by cp.async.bulk (vec);
+                   // else every thread runs the staging loops
   int vec;         // window rows are 16-byte multiples and x is aligned
   int kvec;        // inds / vals chunks load as 16-byte vectors
   int row_stride;  // bytes per window row in shared memory
   int nvec;        // 16-byte vectors per window row
   int group;       // threads per stage
-  int probe;       // kProbe* bits (timing experiments only)
-  int bulk_min;    // bytes from which a segment goes by one bulk copy
 };
 
 struct Layout {
@@ -349,8 +358,7 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// ---- the staging loops of the async route (the first design's, now ---
-// ---- asynchronous) ----------------------------------------------------
+// ---- the staging loops (the first design's, now asynchronous) -------
 // Copy one unit of window row `dst` from source row `src`: 16 bytes by
 // cp.async when rows are 16-byte multiples (vec), else one element.
 template <typename S>
@@ -395,19 +403,35 @@ __device__ __forceinline__ void stage_window(
       }
     }
   } else if constexpr (MODE == kUnsorted) {
+    // lane l of warp w reads the descriptor of slot base + 8 l + w, so
+    // that the live slots, which lead the table, spread over all warps;
+    // then each warp's lanes copy its live slots' rows in turn
     const int* segs = table + bs * g.nseg * 3;
-    const int warp = tid >> 5;
     const int lane = tid & 31;
-    for (int seg = warp; seg < g.nseg; seg += kWarps) {
-      const int len = segs[3 * seg + 2];
-      if (len <= 0) continue;  // pad slot
-      const size_t src = static_cast<size_t>(segs[3 * seg]);
-      const size_t dst = static_cast<size_t>(segs[3 * seg + 1]);
-      const int n_items = len * upr;
-      for (int it = lane; it < n_items; it += 32) {
-        const int row = it / upr;
-        const int unit = it - row * upr;
-        copy_unit(win, x, src + row, dst + row, unit, g);
+    const int mine = lane * kWarps + (tid >> 5);
+#pragma unroll 1
+    for (int base = 0; base < g.nseg; base += kThreads) {
+      const int q = base + mine;
+      int src = 0, dst = 0, len = 0;
+      if (q < g.nseg) {
+        src = segs[3 * q];
+        dst = segs[3 * q + 1];
+        len = segs[3 * q + 2];
+      }
+      unsigned live = __ballot_sync(0xffffffffu, len > 0);  // 0 = pad
+#pragma unroll 1
+      while (live) {
+        const int l = __ffs(live) - 1;
+        live &= live - 1;
+        const unsigned all = 0xffffffffu;
+        const size_t s0 = static_cast<size_t>(__shfl_sync(all, src, l));
+        const size_t d0 = static_cast<size_t>(__shfl_sync(all, dst, l));
+        const int n_items = __shfl_sync(all, len, l) * upr;
+        for (int it = lane; it < n_items; it += 32) {
+          const int row = it / upr;
+          const int unit = it - row * upr;
+          copy_unit(win, x, s0 + row, d0 + row, unit, g);
+        }
       }
     }
   } else if constexpr (MODE == kPerRow) {
@@ -432,8 +456,8 @@ __device__ __forceinline__ void stage_window(
 }
 
 // Issue the windows of local stages [first, first + count) into the
-// slots [slot0, slot0 + count): the bulk route by one warp per stage,
-// the async route by every thread, each arriving once per slot.
+// slots [slot0, slot0 + count): bulk copies by one warp per stage, the
+// staging loops by every thread, each arriving once per slot.
 template <int MODE, typename V, typename S>
 __device__ __forceinline__ void issue_stages(
     unsigned char* __restrict__ ring, uint64_t* bars,
@@ -474,7 +498,7 @@ __device__ __forceinline__ void issue_stages(
     }
   }
   if constexpr (MODE == kSorted || MODE == kStaged) {
-    if (g.route == kBulk) {
+    if (g.bulk) {
       const int warp = kWarps - 1 - (tid >> 5);
       const int lane = tid & 31;
       const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
@@ -485,15 +509,13 @@ __device__ __forceinline__ void issue_stages(
         // the slot was last read by the generic proxy (the compute)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         if constexpr (MODE == kSorted) {
-          // segments of at least bulk_min bytes go by one bulk copy each,
+          // segments of at least kBulkMin bytes go by one bulk copy each,
           // the short ones (most of a table) by 16-byte cp.async; each
           // lane expects the bytes of its own bulk copies before issuing
           // them and arrives once its cp.async copies have landed, so
           // the slot completes when all 32 lanes' copies have
           const int* segs = table + bs * g.nseg * 3;
-          const int nreal = (g.probe & kProbeNoCopy)
-                                ? 0
-                                : segoff[bs * g.noff + g.noff - 1];
+          const int nreal = segoff[bs * g.noff + g.noff - 1];
           for (int q = lane; q < nreal; q += 32) {
             const size_t src = static_cast<size_t>(segs[3 * q]);
             const size_t row = static_cast<size_t>(segs[3 * q + 1]);
@@ -501,7 +523,7 @@ __device__ __forceinline__ void issue_stages(
                 static_cast<uint32_t>(segs[3 * q + 2]) * g.row_stride;
             unsigned char* to = dst + row * g.row_stride;
             const unsigned char* from = xb + src * g.row_stride;
-            if (bytes >= static_cast<uint32_t>(g.bulk_min)) {
+            if (bytes >= kBulkMin) {
               mbar_expect_tx_only(bar, bytes);
               bulk_copy(to, from, bytes, bar);
             } else {
@@ -511,15 +533,14 @@ __device__ __forceinline__ void issue_stages(
           }
           cp_async_arrive(bar);
         } else if (lane == 0) {
-          const bool copy = !(g.probe & kProbeNoCopy);
-          mbar_expect_tx(bar, copy ? window_bytes : 0);
-          if (copy) bulk_copy(dst, xb + bs * window_bytes, window_bytes, bar);
+          mbar_expect_tx(bar, window_bytes);
+          bulk_copy(dst, xb + bs * window_bytes, window_bytes, bar);
         }
       }
       return;
     }
   }
-  for (int p = 0; p < count && !(g.probe & kProbeNoCopy); ++p) {
+  for (int p = 0; p < count; ++p) {
     stage_window<MODE, S>(ring + (slot0 + p) * win_bytes, x, table, segoff,
                           bs0 + p, g);
   }
@@ -665,10 +686,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   if (tid == 0) {
     // arrivals per fill: the issuing warp's 32 lanes under kSorted's
-    // bulk route, the one expect_tx of kStaged's, every thread under the
-    // async route
-    const int arrivals =
-        g.route == kBulk ? (MODE == kSorted ? 32 : 1) : kThreads;
+    // bulk copies, the one expect_tx of kStaged's, every thread under
+    // the staging loops
+    const int arrivals = g.bulk ? (MODE == kSorted ? 32 : 1) : kThreads;
     for (int i = 0; i < g.depth; ++i) mbar_init(bars + i, arrivals);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -698,10 +718,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       mbar_wait(bars + slot, (j / sets) & 1);
       float* pb = part + static_cast<size_t>(
                              g.cluster > 1 ? ls : (j & 1) * P + grp) * rf;
-      if (!(g.probe & kProbeNoCompute))
-        compute_stage<V, S, C, Q>(inds, vals, scales,
-                                      ring + slot * lay.win, pb, bs0 + ls,
-                                      lt, g);
+      compute_stage<V, S, C, Q>(inds, vals, scales, ring + slot * lay.win,
+                                pb, bs0 + ls, lt, g);
     }
     __syncthreads();  // partials complete; round j's slots free
     if (g.cluster == 1) {
@@ -786,7 +804,7 @@ int launch(const void* inds, const void* vals, const void* x,
            const void* table, const void* segoff, const void* scales,
            void* out, int B, int n_stage, int R, int K, int BUF, int F,
            int nseg, int noff, int depth, int inflight, int cluster,
-           int route, void* stream) {
+           void* stream) {
   if (B == 0) return static_cast<int>(cudaSuccess);
   Geom g;
   g.n_stage = n_stage;
@@ -800,12 +818,10 @@ int launch(const void* inds, const void* vals, const void* x,
   g.inflight = inflight;
   g.cluster = cluster;
   g.nloc = cluster > 0 ? (n_stage + cluster - 1) / cluster : 0;
-  g.route = route & 1;
-  g.probe = (route >> 1) & 3;
-  g.bulk_min = (route >> 4) * 16;
   const size_t row_bytes = static_cast<size_t>(F) * sizeof(S);
   g.vec = row_bytes % 16 == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  g.bulk = g.vec && (MODE == kSorted || MODE == kStaged);
   const size_t vals_align = sizeof(V) * kChunk < 16 ? sizeof(V) * kChunk : 16;
   g.kvec = K % kChunk == 0 && reinterpret_cast<uintptr_t>(inds) % 16 == 0 &&
            reinterpret_cast<uintptr_t>(vals) % vals_align == 0;
@@ -815,12 +831,17 @@ int launch(const void* inds, const void* vals, const void* x,
   g.group = items < kThreads ? items : kThreads;
   if (inflight < 1 || depth < inflight || depth % inflight != 0 ||
       inflight * g.group > kThreads || cluster < 1 || cluster > 8 ||
-      (g.route == kBulk &&
-       (!g.vec || (MODE != kSorted && MODE != kStaged))) ||
       R < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_with<MODE, V, S, C, Q>(g, B, inds, vals, x, table, segoff,
                                        scales, out, stream);
+}
+
+template <int MODE, typename V, typename S, typename C, bool Q>
+int occupancy(int* ctas) {
+  auto kernel = xct_spmm_kernel<MODE, V, S, C, Q>;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, kernel, kThreads, 0));
 }
 
 }  // namespace
@@ -831,21 +852,23 @@ int launch(const void* inds, const void* vals, const void* x,
 // for staged; `scales` is the [B, S] int32 exponent table of the
 // quantized entries and unused elsewhere.  `depth`, `inflight` and
 // `cluster` are the ring slots, the stages computed at once and the CTAs
-// per row-block (kernels/xct_spmm.py:launch_geometry).  `route` packs
-// bit 0: one bulk copy per contiguous run (sorted, staged) rather than the
-// staging loops with cp.async; bits 1-2: a timing probe (kProbe*);
-// bits 4 and up: the bulk-copy threshold of row 1 in units of 16 bytes.
+// per row-block (kernels/xct_spmm.py:launch_geometry).
+// <NAME>_occupancy(&ctas) gives the CTAs of the entry's kernel an SM can
+// hold by its registers and threads (shared memory aside), for
+// launch_geometry to size the ring by.  Each returns a cudaError_t.
 #define XCT_SPMM_ENTRY(NAME, MODE, V, S, C, Q)                              \
   extern "C" int NAME(const void* inds, const void* vals, const void* x,    \
                       const void* table, const void* segoff,                \
                       const void* scales, void* out, int B, int n_stage,    \
                       int R, int K, int BUF, int F, int nseg, int noff,     \
-                      int depth, int inflight, int cluster, int route,      \
-                      void* stream) {                                       \
+                      int depth, int inflight, int cluster, void* stream) { \
     return launch<MODE, V, S, C, Q>(inds, vals, x, table, segoff, scales,   \
                                     out, B, n_stage, R, K, BUF, F, nseg,    \
-                                    noff, depth, inflight, cluster, route,  \
+                                    noff, depth, inflight, cluster,         \
                                     stream);                                \
+  }                                                                         \
+  extern "C" int NAME##_occupancy(int* ctas) {                              \
+    return occupancy<MODE, V, S, C, Q>(ctas);                               \
   }
 
 // the six float pairs and the two quantized value types of one fused mode

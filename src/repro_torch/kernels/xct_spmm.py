@@ -31,9 +31,12 @@ or more, 16-byte ``cp.async`` for the shorter ones; row 4: one bulk
 copy per stage), and row 4 splits each row-block's stages over a thread
 block cluster.  :func:`launch_geometry` chooses the ring depth,
 the stages computed at once and the cluster size from what
-:func:`smem_bytes` says fits; nothing else bounds ``R * F``.  Rows 2 and
-3 share the compute core and keep their staging loops, now as 16-byte
-``cp.async`` copies into the ring.
+:func:`smem_bytes` says fits in the CTAs an SM holds; nothing else
+bounds ``R * F``.  Rows 2 and 3 share the compute core and keep their
+staging loops, now as 16-byte ``cp.async`` copies into the ring (row 2
+reading 32 descriptors a warp at once).  Windows whose rows are not
+16-byte multiples take the staging loops on every row, element by
+element.
 
 The kernel is compiled with ``nvcc`` into a plain-C shared library under
 ``build/`` at first use and loaded with ``ctypes``; nothing is compiled
@@ -66,8 +69,6 @@ __all__ = [
     "smem_bytes",
     "launch_geometry",
     "Geometry",
-    "COPY_ROUTES",
-    "TIMING_PROBES",
     "SMEM_LIMIT",
     "KERNEL_PAIRS",
     "QUANT_DTYPES",
@@ -81,25 +82,12 @@ _SM_SMEM = 233_472  # shared memory of one SM; 1 KB of it reserved per CTA
 _THREADS = 256
 _MAX_CLUSTER = 8  # CTAs per row-block in row 4 (the portable cluster size)
 _MAX_LOOKAHEAD = 3  # rounds of windows in flight ahead of the compute
-# CTAs per SM each staging's ring is sized for: two 256-thread CTAs keep
-# 4 stages computing on an SM and hide each other's first round and last
-# fold; rows 2 and 3, whose staging loops wait on their descriptors,
-# want a third.
+# CTAs per SM each staging's ring is sized for, where the entry's
+# registers let that many be resident (else as many as they do): two
+# 256-thread CTAs keep 4 stages computing on an SM and hide each other's
+# first round and last fold; rows 2 and 3, whose staging loops wait on
+# their descriptors, want a third.
 _CTAS_PER_SM = {"sorted": 2, "unsorted": 3, "per_row": 3, "staged": 2}
-# Row 1 copies a segment of at least this many bytes with one bulk copy
-# and shorter ones with 16-byte cp.async: the copy engine pays about the
-# same per copy whatever its size, and most segments are 1-4 rows.
-_BULK_MIN = 256
-# How row 1 fills the ring: "bulk" (the above), or "cp_async", the first
-# design's class loops with 16-byte cp.async from every thread.  Windows
-# whose rows are not 16-byte multiples always take the loops.  Module
-# state so that chip_smoke.py can time both on the same inputs.
-COPY_ROUTES = ("bulk", "cp_async")
-SORTED_ROUTE = "bulk"
-# Timing probes (chip_smoke.py only; the output is then wrong): skip the
-# compute, or issue no copies, to time the other half of a kernel alone.
-TIMING_PROBES = {None: 0, "copy_only": 1, "compute_only": 2}
-TIMING_PROBE = None
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "xct_spmm.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -210,7 +198,7 @@ class Geometry(NamedTuple):
 
 
 def launch_geometry(staging: str, s: int, r: int, k: int, buf: int, f: int,
-                    store_bytes: int) -> Geometry:
+                    store_bytes: int, resident: int | None = None) -> Geometry:
     """Ring depth, stages in flight and cluster size of one launch.
 
     A thread computes one row of one stage on a 16-byte vector of ``F``,
@@ -220,13 +208,17 @@ def launch_geometry(staging: str, s: int, r: int, k: int, buf: int, f: int,
     cluster of up to 8 CTAs of at least that many stages each.  The ring
     then holds ``inflight`` slots per round plus as many rounds ahead
     (at most 3) as fit in the shared memory of ``_CTAS_PER_SM[staging]``
-    CTAs per SM (else of one): the widest ``inflight`` that still leaves
-    one round of lookahead wins, and a window that fits only once runs
-    single-buffered (depth 1).  Raises ``ValueError`` when not even one
-    window fits.
+    CTAs per SM, or of the ``resident`` CTAs the kernel's registers let
+    an SM hold where those are fewer (else of one CTA): the widest
+    ``inflight`` that still leaves one round of lookahead wins, and a
+    window that fits only once runs single-buffered (depth 1).  Raises
+    ``ValueError`` when not even one window fits.
     """
     s = max(int(s), 1)
-    budget = min(SMEM_LIMIT, _SM_SMEM // _CTAS_PER_SM[staging] - 1024)
+    ctas = _CTAS_PER_SM[staging]
+    if resident is not None:
+        ctas = max(1, min(ctas, resident))
+    budget = min(SMEM_LIMIT, _SM_SMEM // ctas - 1024)
     row = _align16(f * store_bytes)
     group = min(r * (row // 16), _THREADS)
     groups = _THREADS // group
@@ -318,10 +310,13 @@ def _library():
             lib = ctypes.CDLL(str(path))
             for entry in ENTRIES:
                 fn = getattr(lib, _entry_name(*entry))
-                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
                     ctypes.c_void_p
                 ]
                 fn.restype = ctypes.c_int
+                occ = getattr(lib, _entry_name(*entry) + "_occupancy")
+                occ.argtypes = [ctypes.POINTER(ctypes.c_int)]
+                occ.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -480,14 +475,24 @@ def _check(staging, inds, vals, x, compute_dtype, table, segoff, scales):
     return dev
 
 
+def _resident(name) -> int:
+    """CTAs of entry ``name`` an SM of the current device holds by its
+    registers and threads."""
+    ctas = ctypes.c_int(0)
+    err = getattr(_library(), name + "_occupancy")(ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"{name}_occupancy failed: cudaError {err}")
+    return ctas.value
+
+
 def _plan(staging, vals_dtype, x_dtype, compute_dtype, s, r, k, buf, f, sb):
     key = (staging, vals_dtype, x_dtype, compute_dtype, s, r, k, buf, f)
     hit = _PLANS.get(key)
     if hit is None:
-        geo = launch_geometry(staging, s, r, k, buf, f, sb)
-        fn = getattr(_library(),
-                     _entry_name(staging, vals_dtype, x_dtype, compute_dtype))
-        hit = _PLANS[key] = (fn, geo, (f * sb) % 16 == 0)
+        name = _entry_name(staging, vals_dtype, x_dtype, compute_dtype)
+        geo = launch_geometry(staging, s, r, k, buf, f, sb,
+                              resident=_resident(name))
+        hit = _PLANS[key] = (getattr(_library(), name), geo)
     return hit
 
 
@@ -497,25 +502,16 @@ def _launch(staging, inds, vals, x, compute_dtype, *, buf, table=None,
     dev = _check(staging, inds, vals, x, compute_dtype, table, segoff, scales)
     b, s, r, k = inds.shape
     f = x.shape[-1]
-    fn, geo, rows16 = _plan(staging, vals.dtype, x.dtype, compute_dtype, s, r,
-                            k, buf, f, x.element_size())
-    if SORTED_ROUTE not in COPY_ROUTES:
-        raise ValueError(
-            f"SORTED_ROUTE {SORTED_ROUTE!r}; one of {COPY_ROUTES}")
-    x_ptr = x.data_ptr()
-    bulk = rows16 and x_ptr % 16 == 0 and (
-        staging == "staged"
-        or (staging == "sorted" and SORTED_ROUTE == "bulk"))
-    route = (int(bulk) | (TIMING_PROBES[TIMING_PROBE] << 1)
-             | ((_BULK_MIN // 16) << 4))
+    fn, geo = _plan(staging, vals.dtype, x.dtype, compute_dtype, s, r, k, buf,
+                    f, x.element_size())
     out = x.new_empty((b, r, f), dtype=torch.float32)
     args = (
-        inds.data_ptr(), vals.data_ptr(), x_ptr,
+        inds.data_ptr(), vals.data_ptr(), x.data_ptr(),
         None if table is None else table.data_ptr(),
         None if segoff is None else segoff.data_ptr(),
         None if scales is None else scales.data_ptr(), out.data_ptr(),
         b, s, r, k, buf, f, nseg, noff, geo.depth, geo.inflight, geo.cluster,
-        route, torch._C._cuda_getCurrentRawStream(dev),
+        torch._C._cuda_getCurrentRawStream(dev),
     )
     if dev == torch.cuda.current_device():
         err = fn(*args)

@@ -33,6 +33,9 @@ SWEEP = [
     # leaves a partial register chunk and F=3 rows no 16-byte multiple
     (3, 7, 32, 32, 64, 256, 16),
     (2, 9, 16, 12, 24, 64, 3),
+    # a random winmap over many columns: about 300 segments a stage, more
+    # than row 2's 256 threads read in one pass of descriptors
+    (2, 3, 16, 16, 320, 4096, 8),
 ]
 # R=32 with fuse=64: wider than the first kernel design took (R*F <= 1024)
 WIDE = (3, 5, 32, 16, 48, 128, 64)
@@ -213,21 +216,53 @@ def test_cuda_wide_fuse_rows_1_1q_4(cuda, pair):
             winsegs=segs, segoff=off))
 
 
+def _misaligned(x):
+    """``x`` copied to an address 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = flat[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["bulk", "cp_async"])
-def test_cuda_sorted_routes_give_the_same_bits(cuda, route, monkeypatch):
-    """Row 1 fills its ring by one bulk copy per segment or by the class
-    loops with cp.async: the same windows, so the same bits."""
-    monkeypatch.setattr(txs, "SORTED_ROUTE", route)
+@pytest.mark.parametrize("route", ["bulk", "loops"])
+def test_cuda_sorted_routes_give_the_same_bits(cuda, route):
+    """Row 1 fills its ring by one bulk copy per segment where window
+    rows are 16-byte multiples and ``x`` is 16-byte aligned, else by the
+    class loops element by element (here: the same ``x`` 2 bytes off):
+    the same windows, so the same bits."""
     for i, shape in enumerate(SWEEP + [WIDE]):
         inds, vals, winmap, x, segs, off = _cuda_inputs(
             shape, "f16", cuda, _seed("route", i)
         )
+        if route == "loops":
+            x = _misaligned(x)
         out = txs.spmm_block_ell(inds, vals, winmap, x, winsegs=segs,
                                  segoff=off)
         plain = txs.spmm_block_ell_plain(inds, vals, winmap, x)
         torch.cuda.synchronize()
         assert torch.equal(out, plain), shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", txs.ENTRIES, ids=lambda e: "_".join(
+    str(v).replace("torch.", "") for v in e))
+def test_cuda_geometry_fits_the_resident_ctas(cuda, entry):
+    """Every entry holds two CTAs per SM (its launch bounds); the ring is
+    sized for no more CTAs than its registers let an SM hold (f16 windows
+    of the n=512 proj shard fit that many; f64 ones only one CTA)."""
+    staging, vals, window, compute = entry
+    name = txs._entry_name(*entry)
+    resident = txs._resident(name)
+    assert resident >= 2
+    sb = torch.empty((), dtype=window).element_size()
+    _, geo = txs._plan(staging, vals, window, compute, 26, 32, 32, 776, 16,
+                       sb)
+    assert geo == txs.launch_geometry(staging, 26, 32, 32, 776, 16, sb,
+                                      resident=resident)
+    ctas = min(txs._CTAS_PER_SM[staging], resident)
+    assert geo.smem <= (233_472 // ctas - 1024 if sb == 2 else txs.SMEM_LIMIT)
 
 
 @pytest.mark.gpu

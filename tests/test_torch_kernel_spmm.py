@@ -286,6 +286,25 @@ def test_launch_geometry_at_the_n512_shards(store_bytes, name, staging):
         assert geo.smem <= 233_472 // 2 - 1024
 
 
+@pytest.mark.parametrize("resident", [1, 2, 3, 4])
+@pytest.mark.parametrize("staging", ["sorted", "unsorted", "per_row",
+                                     "staged"])
+def test_launch_geometry_follows_the_resident_ctas(staging, resident):
+    """The ring is sized for the CTAs per SM the staging wants, or for
+    as many as the kernel's registers let an SM hold where those are
+    fewer: fewer CTAs, no shallower a ring (f16, the proj shard)."""
+    s, buf = N512["proj"]
+    ctas = min(txs._CTAS_PER_SM[staging], resident)
+    geo = txs.launch_geometry(staging, s, 32, 32, buf, 16, 2,
+                              resident=resident)
+    assert geo.smem <= min(txs.SMEM_LIMIT, 233_472 // ctas - 1024)
+    wanted = txs.launch_geometry(staging, s, 32, 32, buf, 16, 2)
+    if resident >= txs._CTAS_PER_SM[staging]:
+        assert geo == wanted
+    else:
+        assert geo.depth >= wanted.depth and geo.smem >= wanted.smem
+
+
 def test_launch_geometry_single_buffered_and_too_large():
     """A window that fits only once runs single-buffered (depth 1); one
     that does not fit at all raises, naming BUF and F."""
