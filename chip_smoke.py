@@ -24,9 +24,11 @@ Phases, each fatal on failure:
    share (run after phase 5: a profiler session slows later launches);
 5. per-application times of every kernel, its plain version and
    ``torch.sparse.mm`` (cuSPARSE, used here only as a yardstick) beside
-   the memory-bandwidth bound; row 4 chunked as ``apply_operator``
-   runs it (the gather aside), with the device time of those launches
-   (``torch.profiler``); the solves' wall time and peak memory.
+   the memory-bandwidth bound (rows 2 and 3 with the table they read);
+   row 1q on the class-sorted, unsorted and per-row tables; row 4
+   chunked as ``apply_operator`` runs it (the gather aside), with the
+   device time of those launches (``torch.profiler``); the solves' wall
+   time and peak memory.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -54,13 +56,16 @@ SWEEP = [  # (B, S, R, K, BUF, C, F): the kernel test sweep
     (3, 7, 32, 32, 64, 256, 16),
     (2, 9, 16, 12, 24, 64, 3),
     (3, 5, 32, 16, 48, 128, 64),
+    # an odd BUF: most stages' winmap rows start off a 16-byte boundary
+    (2, 5, 16, 16, 37, 128, 16),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 AB_ITERS = 5  # iterations of the staging A/B solves
-# the kernels redesigned for Hopper (rows 1, 1q and 4), tagged in the
-# kernels line with the change that redesigned them
-REDESIGNED = {"row1": "PR 13", "row1q": "PR 13", "row4": "PR 13"}
+# the kernels redesigned for Hopper, tagged in the kernels line with the
+# change that redesigned them
+REDESIGNED = {"row1": "PR 13", "row1q": "PR 13", "row2": "PR 14",
+              "row3": "PR 14", "row4": "PR 13"}
 # the five kernels: (key, name, replaces) -- the Pallas kernel body each
 # replaces in src/repro/kernels/xct_spmm.py
 KERNELS = (
@@ -716,23 +721,27 @@ def times(plan, a, device):
 
         vals = t["vals"].to(f16)
         x_bytes = op.n_cols_pad * FUSE * 2
-        mixed_bound = bound(slots, 2, x_bytes, out_bytes)
-        # row 2: unsorted segment table
+        # rows 2 and 3 read their table too: every slot of the unsorted
+        # segment table, every winmap entry
         unsorted = unsorted_table(t["winmap"], device)
+        table_bytes = {"row2": unsorted.numel() * 4,
+                       "row3": t["winmap"].numel() * 4}
+        # row 2: unsorted segment table
         k_ms = cuda_ms(lambda: xs.spmm_block_ell(
             t["inds"], vals, t["winmap"], x16, winsegs=unsorted), 20)
         p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
             t["inds"], vals, t["winmap"], x16, winsegs=unsorted), 3, warm=1)
-        record("row2", "mixed", name, k_ms, p_ms, lib_ms, mixed_bound,
-               table_bytes=unsorted.numel() * 4)
-        del unsorted
+        record("row2", "mixed", name, k_ms, p_ms, lib_ms,
+               bound(slots, 2, x_bytes, out_bytes, extra=table_bytes["row2"]),
+               table_bytes=table_bytes["row2"])
         # row 3: one copy per window row
         k_ms = cuda_ms(lambda: xs.spmm_block_ell(
             t["inds"], vals, t["winmap"], x16), 20)
         p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
             t["inds"], vals, t["winmap"], x16), 3, warm=1)
-        record("row3", "mixed", name, k_ms, p_ms, lib_ms, mixed_bound,
-               table_bytes=t["winmap"].numel() * 4)
+        record("row3", "mixed", name, k_ms, p_ms, lib_ms,
+               bound(slots, 2, x_bytes, out_bytes, extra=table_bytes["row3"]),
+               table_bytes=table_bytes["row3"])
         # row 4: windows gathered into device memory, 64 MB chunks
         buf = op.winmap.shape[-1]
         bpc = ops._gather_blocks_per_call(b, s, buf, FUSE, 2)
@@ -764,23 +773,32 @@ def times(plan, a, device):
         # a profiler session leaves each later launch slower on the host
         profiled.append((name, chunk_loop))
         del window
-        # row 1q: int8 and fp8 values on the class-sorted staging
+        # row 1q: int8 and fp8 values on the class-sorted staging, then
+        # on rows 2 and 3's tables
         for variant, qdtype in (("q8", torch.int8),
                                 ("fp8", torch.float8_e4m3fn)):
             q, e = quantized(op, qdtype, device)
-            k_ms = cuda_ms(lambda: xs.spmm_block_ell(
-                t["inds"], q, t["winmap"], x16, scales=e,
-                winsegs=t["winsegs"], segoff=t["segoff"]), 20)
-            p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
-                t["inds"], q, t["winmap"], x16, scales=e), 3, warm=1)
             qcsr = ell_csr(t, prec.dequantize_block_vals(q, e),
                            op.n_cols_pad)
             q_lib_ms = cuda_ms(lambda: torch.sparse.mm(qcsr, x32), 20)
             del qcsr
-            record("row1q", variant, name, k_ms, p_ms, q_lib_ms,
-                   bound(slots, 1, x_bytes, out_bytes, extra=b * s * 4))
+            for staging, tables, table in (
+                ("", dict(winsegs=t["winsegs"], segoff=t["segoff"]), 0),
+                ("_unsorted", dict(winsegs=unsorted), table_bytes["row2"]),
+                ("_per_row", {}, table_bytes["row3"]),
+            ):
+                k_ms = cuda_ms(lambda: xs.spmm_block_ell(
+                    t["inds"], q, t["winmap"], x16, scales=e, **tables), 20)
+                if staging != "_per_row":  # per_row's plain is sorted's
+                    p_ms = cuda_ms(lambda: xs.spmm_block_ell_plain(
+                        t["inds"], q, t["winmap"], x16, scales=e,
+                        winsegs=tables.get("winsegs") if staging else None),
+                        3, warm=1)
+                record("row1q", variant + staging, name, k_ms, p_ms, q_lib_ms,
+                       bound(slots, 1, x_bytes, out_bytes,
+                             extra=b * s * 4 + table))
             del q, e
-        del t
+        del t, unsorted
     for name, chunk_loop in profiled:
         dev_ms = device_ms(chunk_loop)
         out["row4"]["mixed"][name]["device_ms"] = round(dev_ms, 4)

@@ -31,13 +31,17 @@
 //   * Window ring.  The windows live in a ring of D = (L + 1) * P slots
 //     filled L rounds ahead of the compute, each slot completing on its
 //     own mbarrier.  kernels/xct_spmm.py:launch_geometry sizes it from
-//     shared memory for the CTAs per SM its staging wants and the entry's
-//     registers allow (<name>_occupancy below; the n=512 proj shard in
-//     f16: P = 2, D = 4), falling back to one CTA with the whole 227 KB
-//     (f64: D = 2) and to a single slot where only one window fits.  Copies
-//     are issued by the last warps of the CTA, which compute nothing
-//     while P < 4, and issuing of round j also prefetches round j+1's
-//     table rows and round j's inds / vals tiles into L2.
+//     shared memory for two or three CTAs per SM, whichever keeps more
+//     stages computing on an SM (three on a tie), and no more CTAs than
+//     the entry's registers allow (<name>_occupancy below; the n=512
+//     shards in f16: P = 2, D = 4 for two CTAs on proj and for three on
+//     back), falling back to one CTA with the whole 227 KB (f64: D = 2)
+//     and to a single slot where only one window fits.  Copies are issued
+//     by the last warps of the CTA, which compute nothing while P < 4,
+//     and issuing of round j also prefetches round j+1's table rows and
+//     round j's inds / vals tiles into L2.  Rows whose bytes are not a
+//     16-byte multiple (small F), or an x that is not 16-byte aligned,
+//     are copied element by element by every thread instead.
 //
 // The staging mode is the template parameter MODE; each mode replaces
 // one Pallas TPU kernel of src/repro/kernels/xct_spmm.py and has its
@@ -71,22 +75,40 @@
 //             bank conflicts (random rows of 32 B: about two wavefronts where
 //             one would do).
 //   kUnsorted (row 2)  replaces _spmm_fused_kernel_coalesced (:193-246,
-//             wrapper _pallas_fused_coalesced :598-626).  The table is in
-//             run order and carries no class offsets: every slot holds
-//             its own len (0 = pad).  The first design gave each warp one
-//             slot at a time, so every slot cost a dependent load of its
-//             descriptor (312 slots a stage on the n=512 proj shard); now
-//             each warp loads 32 slots' descriptors at once, one per lane
-//             and interleaved over the warps, and its lanes copy its live
-//             slots' rows in turn with 16-byte cp.async into the ring.  Bound: the same stream as row 1,
-//             plus the table of every slot.
+//             wrapper _pallas_fused_coalesced :598-626).  Redesigned for
+//             Hopper.  The table is in run order and carries no class
+//             offsets: every slot holds its own len (0 = pad, which may
+//             sit anywhere).  The first designs copied from all 256
+//             threads, a warp walking its live slots one at a time (three
+//             shuffles and a loop of len * F / 8 items over 32 lanes per
+//             slot), so the copy issue sat in series with every warp's
+//             compute and 24-30 lanes idled on the 1-4-row segments.  Now
+//             the warps no stage computes on fill the ring as row 1's do:
+//             lane q of a stage's issuing warps takes slots q, q + 32 *
+//             warps, ..., loads kSegBatch descriptors before copying, skips
+//             pads, and copies a run of at least kBulkMin bytes by one
+//             cp.async.bulk, a shorter one by 16-byte cp.async.  Bound: row
+//             1's stream plus the table of every slot (NSEG = 312 on the
+//             n=512 proj shard, 0.65 GB per application); what bounds the
+//             design is row 1's window staging from L2, plus the table.
 //   kPerRow   (row 3)  replaces _spmm_fused_kernel (:141-190, wrapper
-//             _pallas_fused_per_row :572-595).  Window row j is
-//             x[winmap[b, s, j]]: BUF row copies per stage, all threads
-//             striding through them (the first design's loop, now with
-//             cp.async).
-//             Bound: the same stream as row 1 plus the BUF int32 winmap
-//             entries per stage.
+//             _pallas_fused_per_row :572-595).  Redesigned for Hopper.
+//             Window row j is x[winmap[b, s, j]].  The first design strode
+//             all 256 threads through BUF * F / 8 items, each an integer
+//             divide and a dependent load of its row's winmap entry before
+//             its cp.async.  Now the free warps issue (two per stage at P
+//             = 2): the stage's 16-byte units go to their lanes in order,
+//             a row's units on neighbouring lanes, each lane loading 8
+//             entries ahead and stepping row and unit without a divide.
+//             Measured against it (PERF.md): four rows a lane from 16-byte
+//             winmap loads (a 128-byte stride between the lanes' writes,
+//             half a sector per request) took 2.1x the previous design's
+//             time, and bulk copies of the runs of consecutive sources
+//             that a ballot finds, per 32-row chunk or whole, were slower
+//             too.
+//             Bound: row 1's stream plus the BUF int32 winmap entries of
+//             every stage (0.54 GB per proj application); what bounds the
+//             design is the 16-byte copies of every window row from L2.
 //   kStaged   (row 4)  replaces _spmm_staged_kernel (:327-338, wrapper
 //             spmm_block_ell_staged :685-726).  Redesigned for Hopper.  The
 //             caller pre-gathers the windows into a [B, S, BUF, F] tensor in
@@ -111,18 +133,20 @@
 // from its bits into a register and forms float(q) * 2^e before the
 // step, exact in f32 as the reference's vals.astype(f32) * scale is.
 // Bound: 3 B per padded slot (int16 index + 1-byte value) plus 4 B per
-// (b, s).  It shares row 1's staging, so the window traffic bounds it
-// as it bounds row 1.
+// (b, s), plus the table under rows 2 and 3.  It shares the staging of
+// its table's row (1, 2 or 3), so the window traffic bounds it as it
+// bounds that row.
 //
 // Registers per thread (nvcc 12.8, -O3, -Xptxas -v, sm_90a;
-// chip_smoke.py logs every entry's line): row 1 f16/f32 107, f16/f16
-// 109, bf16/f32 107, bf16/bf16 128, f32 100, f64 126; row 1q int8 and
-// fp8 106; row 4 f16 72, bf16/f32 69, f32 values on f16 windows 79,
-// bf16/bf16 122, f32 90, f64 94; row 2 f16 and bf16/f32 101, bf16/bf16
-// 128, f32 117, f64 126, int8 and fp8 96; row 3 f16 and bf16/f32 72,
-// bf16/bf16 119, f32 88, f64 100, int8 and fp8 72.  No entry of the 31
-// spills; __launch_bounds__ caps them at 128 so that two CTAs fit on an
-// SM.  At 80 or fewer a third CTA fits, which rows 2 and 3 want;
+// chip_smoke.py logs every entry's line): row 1 f16/f32, f16/f16 and
+// bf16/f32 76, bf16/bf16 122, f32 91, f64 100; row 1q int8 and fp8 72;
+// row 2 f16/f32, f16/f16 and bf16/f32 72, bf16/bf16 122, f32 85, f64 94,
+// int8 and fp8 71; row 3 f16/f32 and bf16/f32 78, f16/f16 77, bf16/bf16
+// 123, f32 86, f64 116, int8 and fp8 72; row 4 f16/f32 and bf16/f32 72,
+// f16/f16 64, f32 values on f16 windows 80, bf16/bf16 123, f32 88, f64
+// 94.  No entry of the 31 spills.  __launch_bounds__ caps rows 2 and 3
+// on 16-bit windows with f32 compute at 80, so that three CTAs fit an SM
+// (kMinCtas below), and every other entry at 128 (two CTAs);
 // launch_geometry asks each entry's occupancy rather than assume it.
 
 #include <cooperative_groups.h>
@@ -249,9 +273,10 @@ struct Geom {
   int inflight;    // stages computed at once, P
   int cluster;     // CTAs per row-block (row 4 only; 1 elsewhere)
   int nloc;        // stages per CTA: ceil(S / cluster)
-  int bulk;        // kSorted / kStaged fill slots by cp.async.bulk (vec);
-                   // else every thread runs the staging loops
-  int vec;         // window rows are 16-byte multiples and x is aligned
+  int vec;         // window rows are 16-byte multiples and x is aligned:
+                   // producer warps fill the slots, else every thread
+                   // copies element by element
+  int issuers;     // warps issuing rows 2 and 3's copies (vec)
   int kvec;        // inds / vals chunks load as 16-byte vectors
   int row_stride;  // bytes per window row in shared memory
   int nvec;        // 16-byte vectors per window row
@@ -342,6 +367,17 @@ __device__ __forceinline__ void prefetch_l2(const void* src,
   }
 }
 
+// [src, src + bytes) into L2, from the 16-byte boundary at or below src
+// to the one at or below its end
+__device__ __forceinline__ void prefetch_span(const void* src,
+                                              uint32_t bytes) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(src) & ~uintptr_t{15};
+  const uintptr_t hi =
+      (reinterpret_cast<uintptr_t>(src) + bytes) & ~uintptr_t{15};
+  prefetch_l2(reinterpret_cast<const void*>(lo),
+              static_cast<uint32_t>(hi - lo));
+}
+
 // No memory clobber: the staging loops may load their next descriptors
 // while earlier copies are in flight.  Nothing reads a slot before the
 // mbarrier wait, which does clobber memory.
@@ -358,21 +394,16 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// ---- the staging loops (the first design's, now asynchronous) -------
-// Copy one unit of window row `dst` from source row `src`: 16 bytes by
-// cp.async when rows are 16-byte multiples (vec), else one element.
+// ---- the element path: rows that are not 16-byte multiples ---------
+// (small F) or an x that is not 16-byte aligned; every thread copies
+// element e of window row `dst` from source row `src` with plain loads and
+// stores (the first design's staging loops).
 template <typename S>
-__device__ __forceinline__ void copy_unit(unsigned char* __restrict__ win,
-                                          const S* __restrict__ x,
-                                          size_t src, size_t dst, int unit,
-                                          const Geom& g) {
-  if (g.vec) {
-    cp_async16(win + dst * g.row_stride + unit * 16,
-               reinterpret_cast<const unsigned char*>(x) +
-                   src * g.row_stride + unit * 16);
-  } else {
-    reinterpret_cast<S*>(win + dst * g.row_stride)[unit] = x[src * g.F + unit];
-  }
+__device__ __forceinline__ void copy_element(unsigned char* __restrict__ win,
+                                             const S* __restrict__ x,
+                                             size_t src, size_t dst, int e,
+                                             const Geom& g) {
+  reinterpret_cast<S*>(win + dst * g.row_stride)[e] = x[src * g.F + e];
 }
 
 // Stage the window of stage bs = b * n_stage + s into `win`.
@@ -382,7 +413,7 @@ __device__ __forceinline__ void stage_window(
     const int* __restrict__ table, const int* __restrict__ segoff,
     size_t bs, const Geom& g) {
   const int tid = threadIdx.x;
-  const int upr = g.vec ? g.row_stride / 16 : g.F;  // units per row
+  const int upr = g.F;  // elements per row
   if constexpr (MODE == kSorted) {
     const int* segs = table + bs * g.nseg * 3;
     const int* off = segoff + bs * g.noff;
@@ -398,40 +429,20 @@ __device__ __forceinline__ void stage_window(
         const int unit = it - row * upr;
         const int seg = g0 + (row >> lg);
         const int rr = row & ((1 << lg) - 1);
-        copy_unit(win, x, static_cast<size_t>(segs[3 * seg]) + rr,
-                  static_cast<size_t>(segs[3 * seg + 1]) + rr, unit, g);
+        copy_element(win, x, static_cast<size_t>(segs[3 * seg]) + rr,
+                     static_cast<size_t>(segs[3 * seg + 1]) + rr, unit, g);
       }
     }
   } else if constexpr (MODE == kUnsorted) {
-    // lane l of warp w reads the descriptor of slot base + 8 l + w, so
-    // that the live slots, which lead the table, spread over all warps;
-    // then each warp's lanes copy its live slots' rows in turn
+    // one slot a thread; a pad (len 0) may sit anywhere in the table
     const int* segs = table + bs * g.nseg * 3;
-    const int lane = tid & 31;
-    const int mine = lane * kWarps + (tid >> 5);
-#pragma unroll 1
-    for (int base = 0; base < g.nseg; base += kThreads) {
-      const int q = base + mine;
-      int src = 0, dst = 0, len = 0;
-      if (q < g.nseg) {
-        src = segs[3 * q];
-        dst = segs[3 * q + 1];
-        len = segs[3 * q + 2];
-      }
-      unsigned live = __ballot_sync(0xffffffffu, len > 0);  // 0 = pad
-#pragma unroll 1
-      while (live) {
-        const int l = __ffs(live) - 1;
-        live &= live - 1;
-        const unsigned all = 0xffffffffu;
-        const size_t s0 = static_cast<size_t>(__shfl_sync(all, src, l));
-        const size_t d0 = static_cast<size_t>(__shfl_sync(all, dst, l));
-        const int n_items = __shfl_sync(all, len, l) * upr;
-        for (int it = lane; it < n_items; it += 32) {
-          const int row = it / upr;
-          const int unit = it - row * upr;
-          copy_unit(win, x, s0 + row, d0 + row, unit, g);
-        }
+    for (int q = tid; q < g.nseg; q += kThreads) {
+      const size_t src = static_cast<size_t>(segs[3 * q]);
+      const size_t dst = static_cast<size_t>(segs[3 * q + 1]);
+      const int n_items = segs[3 * q + 2] * upr;
+      for (int it = 0; it < n_items; ++it) {
+        const int row = it / upr;
+        copy_element(win, x, src + row, dst + row, it - row * upr, g);
       }
     }
   } else if constexpr (MODE == kPerRow) {
@@ -440,8 +451,8 @@ __device__ __forceinline__ void stage_window(
     for (int it = tid; it < n_items; it += kThreads) {
       const int row = it / upr;
       const int unit = it - row * upr;
-      copy_unit(win, x, static_cast<size_t>(wm[row]),
-                static_cast<size_t>(row), unit, g);
+      copy_element(win, x, static_cast<size_t>(wm[row]),
+                   static_cast<size_t>(row), unit, g);
     }
   } else {  // kStaged: x is the pre-gathered [B, S, BUF, F] window tensor
     const S* block = x + bs * g.BUF * g.F;
@@ -449,15 +460,111 @@ __device__ __forceinline__ void stage_window(
     for (int it = tid; it < n_items; it += kThreads) {
       const int row = it / upr;
       const int unit = it - row * upr;
-      copy_unit(win, block, static_cast<size_t>(row),
-                static_cast<size_t>(row), unit, g);
+      copy_element(win, block, static_cast<size_t>(row),
+                   static_cast<size_t>(row), unit, g);
     }
   }
 }
 
+// ---- the producer routes: 16-byte rows on an aligned x ---------------
+// One contiguous run of `bytes` (a multiple of 16) from x into a slot: one
+// cp.async.bulk from kBulkMin bytes on, raising the slot's expected bytes
+// first, else 16-byte cp.async from this lane.
+__device__ __forceinline__ void copy_run(unsigned char* to,
+                                         const unsigned char* from,
+                                         uint32_t bytes, uint64_t* bar) {
+  if (bytes >= kBulkMin) {
+    mbar_expect_tx_only(bar, bytes);
+    bulk_copy(to, from, bytes, bar);
+  } else {
+    for (uint32_t u = 0; u < bytes; u += 16) cp_async16(to + u, from + u);
+  }
+}
+
+// Segment descriptors a lane loads before it issues their copies.
+constexpr int kSegBatch = 4;
+
+// Row 2: lane li of the stage's nl issuing lanes takes slots li, li + nl,
+// ... of the run-order table: a pad (len 0), wherever it sits, issues
+// nothing, every other slot one copy_run.
+__device__ __forceinline__ void fill_segments(unsigned char* __restrict__ win,
+                                              const unsigned char* __restrict__ xb,
+                                              const int* __restrict__ segs,
+                                              uint64_t* bar, int li, int nl,
+                                              const Geom& g) {
+  for (int q0 = li; q0 < g.nseg; q0 += kSegBatch * nl) {
+    int src[kSegBatch], dst[kSegBatch], len[kSegBatch];
+#pragma unroll
+    for (int i = 0; i < kSegBatch; ++i) {
+      const int q = q0 + i * nl;
+      src[i] = dst[i] = len[i] = 0;
+      if (q < g.nseg) {
+        src[i] = __ldg(segs + 3 * q);
+        dst[i] = __ldg(segs + 3 * q + 1);
+        len[i] = __ldg(segs + 3 * q + 2);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kSegBatch; ++i)
+      if (len[i] > 0)
+        copy_run(win + static_cast<size_t>(dst[i]) * g.row_stride,
+                 xb + static_cast<size_t>(src[i]) * g.row_stride,
+                 static_cast<uint32_t>(len[i]) * g.row_stride, bar);
+  }
+}
+
+// Row 3: window row j is x row wm[j].  The stage's BUF * nvec 16-byte
+// units go to its nl issuing lanes in order, the units of one row on
+// neighbouring lanes, so that one warp instruction reads whole 32-byte
+// sectors of x and writes consecutive shared memory.  Each lane loads the
+// winmap entries of kRowBatch units before it issues their copies,
+// neighbouring lanes reading neighbouring entries, and steps row and unit
+// without a divide.
+constexpr int kRowBatch = 8;
+
+__device__ __forceinline__ void fill_rows(unsigned char* __restrict__ win,
+                                          const unsigned char* __restrict__ xb,
+                                          const int* __restrict__ wm, int li,
+                                          int nl, const Geom& g) {
+  const int nv = g.nvec;
+  const int drow = nl / nv;  // rows and units one step of nl units moves
+  const int dunit = nl - drow * nv;
+  int row = li / nv;
+  int unit = li - row * nv;
+  while (row < g.BUF) {
+    int src[kRowBatch], to[kRowBatch], off[kRowBatch];
+#pragma unroll
+    for (int i = 0; i < kRowBatch; ++i) {
+      src[i] = row < g.BUF ? __ldg(wm + row) : -1;
+      to[i] = row * g.row_stride + unit * 16;
+      off[i] = unit * 16;
+      row += drow;
+      unit += dunit;
+      if (unit >= nv) {
+        unit -= nv;
+        ++row;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowBatch; ++i)
+      if (src[i] >= 0)
+        cp_async16(win + to[i],
+                   xb + static_cast<size_t>(src[i]) * g.row_stride + off[i]);
+  }
+}
+
+// Warps issuing stage p of a round under kUnsorted and kPerRow: issuer
+// warp w (counted from the CTA's last warp) takes stage w % P, so each
+// stage gets every P-th issuer; where the P stages outnumber the issuers,
+// each warp takes stages w, w + issuers, ... alone.
+__device__ __forceinline__ int stage_warps(const Geom& g, int p) {
+  const int P = g.inflight;
+  return P <= g.issuers ? (g.issuers - p + P - 1) / P : 1;
+}
+
 // Issue the windows of local stages [first, first + count) into the
-// slots [slot0, slot0 + count): bulk copies by one warp per stage, the
-// staging loops by every thread, each arriving once per slot.
+// slots [slot0, slot0 + count): by the producer routes (vec), else by the
+// element loops on every thread; each issuing lane arrives once per slot.
 template <int MODE, typename V, typename S>
 __device__ __forceinline__ void issue_stages(
     unsigned char* __restrict__ ring, uint64_t* bars,
@@ -481,70 +588,80 @@ __device__ __forceinline__ void issue_stages(
     // the next round's table rows, so that its issue chain (offsets,
     // then segments) hits L2
     const size_t bs = bs0 + count + (rtid - 32);
-    if constexpr (MODE == kSorted || MODE == kUnsorted) {
+    if constexpr (MODE == kSorted) {
       const uintptr_t segs =
           reinterpret_cast<uintptr_t>(table + bs * g.nseg * 3);
       const uint32_t bytes = static_cast<uint32_t>(g.nseg) * 12;
       prefetch_l2(reinterpret_cast<const void*>(segs & ~uintptr_t{15}),
                   (bytes < 1024 ? bytes : 1024) & ~15u);
-    } else if constexpr (MODE == kPerRow) {
-      prefetch_l2(table + bs * g.BUF,
-                  static_cast<uint32_t>(g.BUF) * 4 & ~15u);
-    }
-    if constexpr (MODE == kSorted) {
       const uintptr_t off =
           reinterpret_cast<uintptr_t>(segoff + bs * g.noff) & ~uintptr_t{15};
       prefetch_l2(reinterpret_cast<const void*>(off), 64);
+    } else if constexpr (MODE == kUnsorted) {
+      prefetch_span(table + bs * g.nseg * 3, static_cast<uint32_t>(g.nseg) * 12);
+    } else if constexpr (MODE == kPerRow) {
+      prefetch_span(table + bs * g.BUF, static_cast<uint32_t>(g.BUF) * 4);
     }
   }
+  if (!g.vec) {
+    for (int p = 0; p < count; ++p) {
+      stage_window<MODE, S>(ring + (slot0 + p) * win_bytes, x, table, segoff,
+                            bs0 + p, g);
+    }
+    for (int p = 0; p < count; ++p) cp_async_arrive(bars + slot0 + p);
+    return;
+  }
+  const int warp = kWarps - 1 - (tid >> 5);
+  const int lane = tid & 31;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
   if constexpr (MODE == kSorted || MODE == kStaged) {
-    if (g.bulk) {
-      const int warp = kWarps - 1 - (tid >> 5);
-      const int lane = tid & 31;
-      const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
-      for (int p = warp; p < count; p += kWarps) {
-        const size_t bs = bs0 + p;
-        unsigned char* dst = ring + (slot0 + p) * win_bytes;
-        uint64_t* bar = bars + slot0 + p;
-        // the slot was last read by the generic proxy (the compute)
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        if constexpr (MODE == kSorted) {
-          // segments of at least kBulkMin bytes go by one bulk copy each,
-          // the short ones (most of a table) by 16-byte cp.async; each
-          // lane expects the bytes of its own bulk copies before issuing
-          // them and arrives once its cp.async copies have landed, so
-          // the slot completes when all 32 lanes' copies have
-          const int* segs = table + bs * g.nseg * 3;
-          const int nreal = segoff[bs * g.noff + g.noff - 1];
-          for (int q = lane; q < nreal; q += 32) {
-            const size_t src = static_cast<size_t>(segs[3 * q]);
-            const size_t row = static_cast<size_t>(segs[3 * q + 1]);
-            const uint32_t bytes =
-                static_cast<uint32_t>(segs[3 * q + 2]) * g.row_stride;
-            unsigned char* to = dst + row * g.row_stride;
-            const unsigned char* from = xb + src * g.row_stride;
-            if (bytes >= kBulkMin) {
-              mbar_expect_tx_only(bar, bytes);
-              bulk_copy(to, from, bytes, bar);
-            } else {
-              for (uint32_t u = 0; u < bytes; u += 16)
-                cp_async16(to + u, from + u);
-            }
-          }
-          cp_async_arrive(bar);
-        } else if (lane == 0) {
-          mbar_expect_tx(bar, window_bytes);
-          bulk_copy(dst, xb + bs * window_bytes, window_bytes, bar);
+    for (int p = warp; p < count; p += kWarps) {
+      const size_t bs = bs0 + p;
+      unsigned char* dst = ring + (slot0 + p) * win_bytes;
+      uint64_t* bar = bars + slot0 + p;
+      // the slot was last read by the generic proxy (the compute)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if constexpr (MODE == kSorted) {
+        // segments of at least kBulkMin bytes go by one bulk copy each,
+        // the short ones (most of a table) by 16-byte cp.async; each
+        // lane expects the bytes of its own bulk copies before issuing
+        // them and arrives once its cp.async copies have landed, so
+        // the slot completes when all 32 lanes' copies have
+        const int* segs = table + bs * g.nseg * 3;
+        const int nreal = segoff[bs * g.noff + g.noff - 1];
+        for (int q = lane; q < nreal; q += 32) {
+          copy_run(dst + static_cast<size_t>(segs[3 * q + 1]) * g.row_stride,
+                   xb + static_cast<size_t>(segs[3 * q]) * g.row_stride,
+                   static_cast<uint32_t>(segs[3 * q + 2]) * g.row_stride, bar);
         }
+        cp_async_arrive(bar);
+      } else if (lane == 0) {
+        mbar_expect_tx(bar, window_bytes);
+        bulk_copy(dst, xb + bs * window_bytes, window_bytes, bar);
       }
-      return;
+    }
+  } else {
+    // kUnsorted and kPerRow: the issuer warps only (the warps no stage
+    // computes on where there are any), stage_warps of them per stage;
+    // every lane arrives once its cp.async copies have landed
+    if (warp >= g.issuers) return;
+    const int P = g.inflight;
+    for (int p = warp % P; p < count; p += g.issuers) {
+      const size_t bs = bs0 + p;
+      unsigned char* dst = ring + (slot0 + p) * win_bytes;
+      uint64_t* bar = bars + slot0 + p;
+      const int li = (warp / P) * 32 + lane;
+      const int nl = 32 * stage_warps(g, p);
+      // the slot was last read by the generic proxy (the compute)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if constexpr (MODE == kUnsorted) {
+        fill_segments(dst, xb, table + bs * g.nseg * 3, bar, li, nl, g);
+      } else {
+        fill_rows(dst, xb, table + bs * g.BUF, li, nl, g);
+      }
+      cp_async_arrive(bar);
     }
   }
-  for (int p = 0; p < count; ++p) {
-    stage_window<MODE, S>(ring + (slot0 + p) * win_bytes, x, table, segoff,
-                          bs0 + p, g);
-  }
-  for (int p = 0; p < count; ++p) cp_async_arrive(bars + slot0 + p);
 }
 
 // ---- the compute core: one stage's partial for this thread's items ---
@@ -658,8 +775,18 @@ __device__ __forceinline__ void compute_stage(
   }
 }
 
+// CTAs per SM the launch bounds leave registers for: three (80 a
+// thread) for rows 2 and 3 on 16-bit windows with f32 compute, whose
+// rings launch_geometry sizes for three CTAs on the n=512 back shard;
+// two (128 a thread) elsewhere
+template <int MODE, typename S, typename C>
+constexpr int kMinCtas = (MODE == kUnsorted || MODE == kPerRow) &&
+                                 sizeof(S) == 2 && sizeof(C) == 4
+                             ? 3
+                             : 2;
+
 template <int MODE, typename V, typename S, typename C, bool Q>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, (kMinCtas<MODE, S, C>))
     xct_spmm_kernel(const int16_t* __restrict__ inds,
                     const V* __restrict__ vals, const S* __restrict__ x,
                     const int* __restrict__ table,
@@ -685,11 +812,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t bs0 = static_cast<size_t>(b) * g.n_stage + s_lo;
 
   if (tid == 0) {
-    // arrivals per fill: the issuing warp's 32 lanes under kSorted's
-    // bulk copies, the one expect_tx of kStaged's, every thread under
-    // the staging loops
-    const int arrivals = g.bulk ? (MODE == kSorted ? 32 : 1) : kThreads;
-    for (int i = 0; i < g.depth; ++i) mbar_init(bars + i, arrivals);
+    // arrivals per fill of a slot of stage p in its round: every thread
+    // on the element path; else the one expect_tx of kStaged's bulk copy,
+    // the issuing warp's 32 lanes under kSorted, the lanes of stage p's
+    // stage_warps under kUnsorted and kPerRow
+    for (int i = 0; i < g.depth; ++i) {
+      const int arrivals =
+          !g.vec ? kThreads
+                 : MODE == kStaged ? 1
+                 : MODE == kSorted ? 32 : 32 * stage_warps(g, i % P);
+      mbar_init(bars + i, arrivals);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (g.cluster == 1)
@@ -821,7 +954,6 @@ int launch(const void* inds, const void* vals, const void* x,
   const size_t row_bytes = static_cast<size_t>(F) * sizeof(S);
   g.vec = row_bytes % 16 == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  g.bulk = g.vec && (MODE == kSorted || MODE == kStaged);
   const size_t vals_align = sizeof(V) * kChunk < 16 ? sizeof(V) * kChunk : 16;
   g.kvec = K % kChunk == 0 && reinterpret_cast<uintptr_t>(inds) % 16 == 0 &&
            reinterpret_cast<uintptr_t>(vals) % vals_align == 0;
@@ -833,6 +965,11 @@ int launch(const void* inds, const void* vals, const void* x,
       inflight * g.group > kThreads || cluster < 1 || cluster > 8 ||
       R < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  // rows 2 and 3 issue from the warps no stage in flight computes on, and
+  // from at least one warp per stage
+  const int idle = kWarps - (inflight * g.group + 31) / 32;
+  const int one_per_stage = inflight < kWarps ? inflight : kWarps;
+  g.issuers = idle > one_per_stage ? idle : one_per_stage;
   return launch_with<MODE, V, S, C, Q>(g, B, inds, vals, x, table, segoff,
                                        scales, out, stream);
 }

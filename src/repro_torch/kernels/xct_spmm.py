@@ -22,21 +22,21 @@ its plain version.  There is no fallback between the two: a CUDA call
 that cannot launch raises.  ``LAUNCHES`` counts the launches of every
 kernel by name.
 
-Rows 1, 1q and 4 were redesigned for Hopper: a thread computes one row
-of one stage on a 16-byte vector of ``F`` with its indices and values in
-registers, a CTA computes several stages at once from a ring of windows
-in shared memory that producer warps fill ahead of the compute (row 1:
-one ``cp.async.bulk`` per segment of the class-sorted table of 256 bytes
-or more, 16-byte ``cp.async`` for the shorter ones; row 4: one bulk
-copy per stage), and row 4 splits each row-block's stages over a thread
-block cluster.  :func:`launch_geometry` chooses the ring depth,
-the stages computed at once and the cluster size from what
-:func:`smem_bytes` says fits in the CTAs an SM holds; nothing else
-bounds ``R * F``.  Rows 2 and 3 share the compute core and keep their
-staging loops, now as 16-byte ``cp.async`` copies into the ring (row 2
-reading 32 descriptors a warp at once).  Windows whose rows are not
-16-byte multiples take the staging loops on every row, element by
-element.
+Every kernel was redesigned for Hopper (rows 1, 1q and 4 first, then
+rows 2 and 3): a thread computes one row of one stage on a 16-byte
+vector of ``F`` with its indices and values in registers, a CTA
+computes several stages at once from a ring of windows in shared memory
+that producer warps fill ahead of the compute, and row 4 splits each
+row-block's stages over a thread block cluster.  The producer warps copy
+row 1's class-sorted and row 2's run-order segments of 256 bytes or more
+by one ``cp.async.bulk`` each and the shorter ones by 16-byte
+``cp.async``; row 3's window rows by 16-byte ``cp.async``, a row's
+pieces on neighbouring lanes; row 4's window by one bulk copy per stage.
+:func:`launch_geometry` chooses the ring depth, the stages computed at
+once and the cluster size from what :func:`smem_bytes` says fits in the
+CTAs an SM holds; nothing else bounds ``R * F``.  Windows whose rows are
+not 16-byte multiples, or an ``x`` that is not 16-byte aligned, take
+the staging loops on every thread, element by element.
 
 The kernel is compiled with ``nvcc`` into a plain-C shared library under
 ``build/`` at first use and loaded with ``ctypes``; nothing is compiled
@@ -82,12 +82,12 @@ _SM_SMEM = 233_472  # shared memory of one SM; 1 KB of it reserved per CTA
 _THREADS = 256
 _MAX_CLUSTER = 8  # CTAs per row-block in row 4 (the portable cluster size)
 _MAX_LOOKAHEAD = 3  # rounds of windows in flight ahead of the compute
-# CTAs per SM each staging's ring is sized for, where the entry's
-# registers let that many be resident (else as many as they do): two
-# 256-thread CTAs keep 4 stages computing on an SM and hide each other's
-# first round and last fold; rows 2 and 3, whose staging loops wait on
-# their descriptors, want a third.
-_CTAS_PER_SM = {"sorted": 2, "unsorted": 3, "per_row": 3, "staged": 2}
+# CTAs per SM a ring may be sized for: two 256-thread CTAs hide each
+# other's first round and last fold, and a third fits where the entry's
+# registers allow it (80 or fewer a thread).  launch_geometry takes the
+# one whose ring keeps more stages computing on an SM, and the most CTAs
+# on a tie (on the n=512 shards at f16: two on proj, three on back).
+_CTAS_PER_SM = (2, 3)
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "xct_spmm.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -207,17 +207,28 @@ def launch_geometry(staging: str, s: int, r: int, k: int, buf: int, f: int,
     (``staging="staged"``) splits each row-block's ``S`` stages over a
     cluster of up to 8 CTAs of at least that many stages each.  The ring
     then holds ``inflight`` slots per round plus as many rounds ahead
-    (at most 3) as fit in the shared memory of ``_CTAS_PER_SM[staging]``
-    CTAs per SM, or of the ``resident`` CTAs the kernel's registers let
-    an SM hold where those are fewer (else of one CTA): the widest
-    ``inflight`` that still leaves one round of lookahead wins, and a
-    window that fits only once runs single-buffered (depth 1).  Raises
-    ``ValueError`` when not even one window fits.
+    (at most 3) as fit in the shared memory of 2 or 3 CTAs per SM (of no
+    more than the ``resident`` CTAs the kernel's registers let an SM
+    hold; else of one CTA): the widest ``inflight`` that still leaves one
+    round of lookahead wins, and a window that fits only once runs
+    single-buffered (depth 1).  Of the rings for 2 and for 3 CTAs, the
+    one whose CTAs an SM holds compute more stages at once is taken, the
+    one for more CTAs on a tie.  Raises ``ValueError`` when not even one
+    window fits.
     """
+    resident = _CTAS_PER_SM[-1] if resident is None else max(1, resident)
+    best, score = None, None
+    for ctas in sorted({min(c, resident) for c in _CTAS_PER_SM}):
+        geo = _sized_for(ctas, staging, s, r, k, buf, f, store_bytes)
+        held = min(resident, _SM_SMEM // (geo.smem + 1024))
+        if score is None or (held * geo.inflight, held) >= score:
+            best, score = geo, (held * geo.inflight, held)
+    return best
+
+
+def _sized_for(ctas, staging, s, r, k, buf, f, store_bytes) -> Geometry:
+    """The ring of :func:`launch_geometry` for ``ctas`` CTAs per SM."""
     s = max(int(s), 1)
-    ctas = _CTAS_PER_SM[staging]
-    if resident is not None:
-        ctas = max(1, min(ctas, resident))
     budget = min(SMEM_LIMIT, _SM_SMEM // ctas - 1024)
     row = _align16(f * store_bytes)
     group = min(r * (row // 16), _THREADS)

@@ -36,6 +36,9 @@ SWEEP = [
     # a random winmap over many columns: about 300 segments a stage, more
     # than row 2's 256 threads read in one pass of descriptors
     (2, 3, 16, 16, 320, 4096, 8),
+    # an odd BUF: most stages' winmap rows start off a 16-byte boundary,
+    # and no warp instruction of row 3 covers a window's rows evenly
+    (2, 5, 16, 16, 37, 128, 16),
 ]
 # R=32 with fuse=64: wider than the first kernel design took (R*F <= 1024)
 WIDE = (3, 5, 32, 16, 48, 128, 64)
@@ -216,6 +219,21 @@ def test_cuda_wide_fuse_rows_1_1q_4(cuda, pair):
             winsegs=segs, segoff=off))
 
 
+def _permuted_table(winmap, rng, extra_pads=5):
+    """Row 2's run-order table with its slots shuffled per (b, s), so that
+    pads (len 0) sit between the live slots, not only after them."""
+    segs = tops.winmap_segments(winmap)
+    b, s, nseg, _ = segs.shape
+    pads = np.zeros((b, s, extra_pads, 3), np.int32)
+    segs = np.concatenate([segs, pads], axis=2)
+    order = np.argsort(rng.random(segs.shape[:3]), axis=-1)
+    segs = np.take_along_axis(segs, order[..., None], axis=2)
+    live = segs[..., 2] > 0
+    # some pad precedes some live slot in the table
+    assert (np.cumsum(~live, axis=-1) * live).any()
+    return segs
+
+
 def _misaligned(x):
     """``x`` copied to an address 2 bytes past a 16-byte boundary."""
     flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
@@ -246,12 +264,64 @@ def test_cuda_sorted_routes_give_the_same_bits(cuda, route):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("values", ["f16", "int8"])
+@pytest.mark.parametrize("case", ["permuted_pads", "odd_buf", "element"])
+def test_cuda_rows_2_3_routes_give_row1_bits(cuda, case, values):
+    """Rows 2 and 3 equal their plain versions and row 1's kernel bit for
+    bit on the inputs that steer their copy routes: a run-order table
+    with its slots permuted and pads between live slots, one run long
+    enough for a bulk copy (row 2's issuing lanes walk every slot); an
+    odd BUF, whose winmap rows are not 16-byte aligned; and the element
+    loops, taken for F=3 and for an x 2 bytes off a 16-byte boundary.
+    f16/f32 values, and int8 with exponents."""
+    rng = np.random.default_rng(_seed("routes", case, values))
+    shape = {"permuted_pads": (3, 4, 32, 16, 64, 512, 16),
+             "odd_buf": (3, 5, 32, 16, 37, 256, 16),
+             "element": (2, 3, 16, 16, 40, 128, 3)}[case]
+    inds, vals, winmap, x = _random_ell(rng, *shape)
+    if case == "permuted_pads":
+        # a run of 20 consecutive columns: a 16-row (512 B) piece
+        winmap[:, :, 10:30] = np.arange(100, 120, dtype=np.int32)
+    table = (_permuted_table(winmap, rng) if case == "permuted_pads"
+             else tops.winmap_segments(winmap))
+    segs, off = tops.sort_segments_by_class(tops.winmap_segments(winmap),
+                                            shape[4])
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    inds, winmap, table, segs, off = map(t, (inds, winmap, table, segs, off))
+    x = t(x).to(torch.float16)
+    kw = {}
+    if values == "int8":
+        vals, kw["scales"] = (u.to(cuda) for u in tprec.quantize_block_vals(
+            torch.from_numpy(vals), torch.int8))
+    else:
+        vals = t(vals).to(torch.float16)
+    xs = [x]
+    if case == "element":
+        # 16-byte rows (F=16) on an x 2 bytes off: the element loops too
+        wide = rng.normal(size=(shape[5], 16)).astype(np.float32)
+        xs.append(_misaligned(t(wide).to(torch.float16)))
+    for xi in xs:
+        row1 = txs.spmm_block_ell(inds, vals, winmap, xi, winsegs=segs,
+                                  segoff=off, **kw)
+        row2 = txs.spmm_block_ell(inds, vals, winmap, xi, winsegs=table,
+                                  **kw)
+        row3 = txs.spmm_block_ell(inds, vals, winmap, xi, **kw)
+        torch.cuda.synchronize()
+        plain2 = txs.spmm_block_ell_plain(inds, vals, winmap, xi,
+                                          winsegs=table, **kw)
+        plain3 = txs.spmm_block_ell_plain(inds, vals, winmap, xi, **kw)
+        assert torch.equal(row2, plain2) and torch.equal(row3, plain3)
+        assert torch.equal(row2, row1) and torch.equal(row3, row1)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("entry", txs.ENTRIES, ids=lambda e: "_".join(
     str(v).replace("torch.", "") for v in e))
 def test_cuda_geometry_fits_the_resident_ctas(cuda, entry):
     """Every entry holds two CTAs per SM (its launch bounds); the ring is
-    sized for no more CTAs than its registers let an SM hold (f16 windows
-    of the n=512 proj shard fit that many; f64 ones only one CTA)."""
+    sized for no more CTAs than its registers let an SM hold, and f16
+    windows of the n=512 proj shard leave room for two of them (f64 ones
+    for one)."""
     staging, vals, window, compute = entry
     name = txs._entry_name(*entry)
     resident = txs._resident(name)
@@ -261,8 +331,9 @@ def test_cuda_geometry_fits_the_resident_ctas(cuda, entry):
                        sb)
     assert geo == txs.launch_geometry(staging, 26, 32, 32, 776, 16, sb,
                                       resident=resident)
-    ctas = min(txs._CTAS_PER_SM[staging], resident)
-    assert geo.smem <= (233_472 // ctas - 1024 if sb == 2 else txs.SMEM_LIMIT)
+    held = min(resident, 233_472 // (geo.smem + 1024))
+    assert held >= (2 if sb == 2 else 1)
+    assert geo.smem <= txs.SMEM_LIMIT
 
 
 @pytest.mark.gpu

@@ -278,31 +278,39 @@ def test_launch_geometry_at_the_n512_shards(store_bytes, name, staging):
         assert geo.cluster == 1 and geo.stages_per_cta == s
         assert geo.lookahead >= 1  # windows issued a round ahead
         assert geo.part_buffers == 2 * geo.inflight
-    if store_bytes == 2 and staging == "sorted":
-        # f16, two CTAs per SM: 2 or 3 stages at once (64 threads each),
-        # one round of windows ahead
-        assert (geo.inflight, geo.depth) == {"proj": (2, 4),
-                                             "back": (3, 6)}[name]
-        assert geo.smem <= 233_472 // 2 - 1024
+    if store_bytes == 2 and staging != "staged":
+        # f16: 2 stages at once (64 threads each), one round of windows
+        # ahead, in the shared memory of two CTAs per SM on proj (4
+        # stages per SM against 3 from three CTAs) and of three on back
+        # (6 stages per SM either way; the tie goes to more CTAs)
+        assert (geo.inflight, geo.depth) == (2, 4)
+        ctas = {"proj": 2, "back": 3}[name]
+        assert geo.smem <= 233_472 // ctas - 1024
 
 
 @pytest.mark.parametrize("resident", [1, 2, 3, 4])
 @pytest.mark.parametrize("staging", ["sorted", "unsorted", "per_row",
                                      "staged"])
 def test_launch_geometry_follows_the_resident_ctas(staging, resident):
-    """The ring is sized for the CTAs per SM the staging wants, or for
-    as many as the kernel's registers let an SM hold where those are
-    fewer: fewer CTAs, no shallower a ring (f16, the proj shard)."""
-    s, buf = N512["proj"]
-    ctas = min(txs._CTAS_PER_SM[staging], resident)
-    geo = txs.launch_geometry(staging, s, 32, 32, buf, 16, 2,
-                              resident=resident)
-    assert geo.smem <= min(txs.SMEM_LIMIT, 233_472 // ctas - 1024)
-    wanted = txs.launch_geometry(staging, s, 32, 32, buf, 16, 2)
-    if resident >= txs._CTAS_PER_SM[staging]:
-        assert geo == wanted
-    else:
-        assert geo.depth >= wanted.depth and geo.smem >= wanted.smem
+    """The ring is sized for no more CTAs per SM than the kernel's
+    registers let an SM hold, and of the rings for one, two or three
+    CTAs it takes one whose CTAs compute the most stages at once on an
+    SM (f16, both n=512 shards); at three resident it is the ring taken
+    where ``resident`` is not given."""
+    for name in ("proj", "back"):
+        s, buf = N512[name]
+        geo = txs.launch_geometry(staging, s, 32, 32, buf, 16, 2,
+                                  resident=resident)
+
+        def held(g):
+            return min(resident, 233_472 // (g.smem + 1024))
+
+        assert held(geo) >= min(2, resident)
+        for ctas in range(1, min(3, resident) + 1):
+            other = txs._sized_for(ctas, staging, s, 32, 32, buf, 16, 2)
+            assert held(geo) * geo.inflight >= held(other) * other.inflight
+        if resident == 3:
+            assert geo == txs.launch_geometry(staging, s, 32, 32, buf, 16, 2)
 
 
 def test_launch_geometry_single_buffered_and_too_large():
@@ -433,6 +441,49 @@ def test_fused_stagings_match_jax_kernel(shape, pair, staging):
         ), np.float32))
     tol = _tol(storage, compute)
     np.testing.assert_allclose(outs[0], outs[1], rtol=tol, atol=tol)
+
+
+def _permuted_table(winmap, rng, extra_pads=5):
+    """Row 2's run-order table with its slots shuffled per (b, s), so that
+    pads (len 0) sit between the live slots, not only after them."""
+    segs = tops.winmap_segments(winmap)
+    b, s, nseg, _ = segs.shape
+    pads = np.zeros((b, s, extra_pads, 3), np.int32)
+    segs = np.concatenate([segs, pads], axis=2)
+    order = np.argsort(rng.random(segs.shape[:3]), axis=-1)
+    segs = np.take_along_axis(segs, order[..., None], axis=2)
+    live = segs[..., 2] > 0
+    # some pad precedes some live slot in the table
+    assert (np.cumsum(~live, axis=-1) * live).any()
+    return segs
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+def test_unsorted_plain_matches_jax_kernel_on_permuted_pads(pair):
+    """Row 2 on a run-order table whose slots are permuted, with pads
+    between live slots and a 16-row piece of a 20-column run (a bulk copy
+    on the card): the plain version against the JAX kernel, which takes
+    pads anywhere, and against row 1's bits on the class-sorted table."""
+    b, s, r, k, buf, c, f = 2, 3, 16, 16, 64, 256, 8
+    storage, compute = pair
+    rng = np.random.default_rng(_seed("permuted", pair))
+    inds, vals, winmap, x = _random_ell(rng, b, s, r, k, buf, c, f)
+    winmap[:, :, 10:30] = np.arange(100, 120, dtype=np.int32)
+    segs = _permuted_table(winmap, rng)
+    outs = []
+    for t in (True, False):
+        fn = txs.spmm_block_ell if t else jax_spmm
+        outs.append(np.asarray(fn(
+            _as(t, inds), _as(t, vals, storage), _as(t, winmap),
+            _as(t, x, storage), compute_dtype=(TORCH if t else JNP)[compute],
+            winsegs=_as(t, segs),
+        ), np.float32))
+    tol = _tol(storage, compute)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=tol, atol=tol)
+    row1 = txs.spmm_block_ell_plain(
+        _as(True, inds), _as(True, vals, storage), _as(True, winmap),
+        _as(True, x, storage), compute_dtype=TORCH[compute])
+    np.testing.assert_array_equal(outs[0], row1.numpy())
 
 
 @pytest.mark.parametrize("shape", SWEEP[1:3])
