@@ -28,7 +28,16 @@ Phases, each fatal on failure:
    row 1q on the class-sorted, unsorted and per-row tables; row 4
    chunked as ``apply_operator`` runs it (the gather aside), with the
    device time of those launches (``torch.profiler``); the solves' wall
-   time and peak memory.
+   time and peak memory;
+6. the partial-data exchange over a mesh: the same system matrix planned
+   for four ranks (``PartitionConfig(n_data=4, socket=2)``) on a 2x2
+   ``DeviceMesh`` of this one card, data axes ``("model", "data")``;
+   rows 1 and 1q against their plain versions on every rank's shard;
+   one projection and backprojection under each of the five reduction
+   modes and the int8 wire against the one-rank path; 30-iteration
+   solves under ``mixed`` (``hier``, ``hier-sparse``) and ``q8`` over
+   the int8 wire, with their launch counts; and one profiled
+   ``hier-sparse`` solve beside phase 4's.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -62,6 +71,13 @@ SWEEP = [  # (B, S, R, K, BUF, C, F): the kernel test sweep
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 AB_ITERS = 5  # iterations of the staging A/B solves
+MODES = ("direct", "rs", "hier", "sparse", "hier-sparse")
+# phase 6's solves: (key, precision, comm mode, wire)
+MESH_SOLVES = (
+    ("p4_hier_mixed", "mixed", "hier", "native"),
+    ("p4_hier-sparse_mixed", "mixed", "hier-sparse", "native"),
+    ("p4_hier-sparse_q8_wire-q8", "q8", "hier-sparse", "q8"),
+)
 # the kernels redesigned for Hopper, tagged in the kernels line with the
 # change that redesigned them
 REDESIGNED = {"row1": "PR 13", "row1q": "PR 13", "row2": "PR 14",
@@ -227,25 +243,25 @@ def check_sweep(device):
     return worst
 
 
-def operator_tensors(op, device):
+def operator_tensors(op, device, p=0):
+    """Rank ``p``'s shard of an operator on ``device``."""
     import torch
 
-    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    t = lambda a: torch.from_numpy(a[p]).to(device)  # noqa: E731
     return {
-        "inds": t(op.inds[0]), "vals": t(op.vals[0]),
-        "winmap": t(op.winmap[0]), "winsegs": t(op.winsegs[0]),
-        "segoff": t(op.segoff[0]),
+        "inds": t(op.inds), "vals": t(op.vals), "winmap": t(op.winmap),
+        "winsegs": t(op.winsegs), "segoff": t(op.segoff),
     }
 
 
-def quantized(op, qdtype, device):
-    """The bound form of an operator under q8/fp8: packed values and
-    exponents, quantized on the host as ``Reconstructor`` does."""
+def quantized(op, qdtype, device, p=0):
+    """The bound form of rank ``p``'s shard under q8/fp8: packed values
+    and exponents, quantized on the host as ``Reconstructor`` does."""
     import torch
 
     from repro_torch.core import precision as prec
 
-    q, e = prec.quantize_block_vals(torch.from_numpy(op.vals[0]), qdtype)
+    q, e = prec.quantize_block_vals(torch.from_numpy(op.vals[p]), qdtype)
     return q.to(device), e.to(device)
 
 
@@ -532,6 +548,249 @@ def main_path(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS,
     return runs
 
 
+MESH_CFG = dict(n_data=4, socket=2)  # phase 6's PartitionConfig fields
+
+
+def build_mesh_plan(geo, a):
+    """Phase 6's plan: the main path's matrix, tile, R and K over four
+    ranks in the socket-aware layout, and its exchange tables' sizes."""
+    from repro_torch.core.partition import (
+        PartitionConfig,
+        build_hier_sparse_exchange,
+        build_plan,
+        build_sparse_exchange,
+    )
+
+    t0 = time.perf_counter()
+    plan = build_plan(geo, PartitionConfig(**MESH_CFG), a=a)
+    t_plan = time.perf_counter() - t0
+    tables = {}
+    for name in ("proj", "back"):
+        op = getattr(plan, name)
+        t0 = time.perf_counter()
+        _, _, v = build_sparse_exchange(op)
+        t_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, _, w, v2 = build_hier_sparse_exchange(op, 2)
+        t_h = time.perf_counter() - t0
+        tables[name] = dict(V=v, W=w, V2=v2, sparse_s=t_s, hier_s=t_h)
+        log(f"mesh plan {name}: shards {list(op.inds.shape)} BUF "
+            f"{op.winmap.shape[-1]} rows per rank {op.rows_per_dev} | sparse "
+            f"V {v} ({t_s:.1f} s) | hier-sparse W {w} V2 {v2} ({t_h:.1f} s)")
+    log(f"host build: P=4 plan {t_plan:.1f} s (n={geo.n}, socket=2)")
+    return plan, dict(plan_s=t_plan, **tables)
+
+
+def check_mesh_shards(plan, device):
+    """Phase 6a: rows 1 and 1q on every rank's proj and back shard of the
+    P=4 plan, the shapes the mesh path launches them at: row 1 for every
+    (storage, compute) pair, row 1q for int8 and fp8 on the class-sorted
+    tables, each against its plain version.  Returns ({kernel key: max abs
+    error}, [per-shard records with row 1's mixed time and bound])."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.kernels import xct_spmm as xs
+
+    errs = {"row1": 0.0, "row1q": 0.0}
+    shards = []
+    for name in ("proj", "back"):
+        op = getattr(plan, name)
+        n_ranks, b, s, r, k = op.inds.shape
+        for p in range(n_ranks):
+            t = operator_tensors(op, device, p)
+            x32 = torch.from_numpy(
+                np.random.default_rng(11 + p).normal(
+                    size=(op.cols_per_dev, FUSE)
+                ).astype(np.float32)
+            ).to(device)
+            tables = dict(winsegs=t["winsegs"], segoff=t["segoff"])
+            worst = {}
+            for storage, compute in xs.KERNEL_PAIRS:
+                vals, x = t["vals"].to(storage), x32.to(storage)
+                out = xs.spmm_block_ell(t["inds"], vals, t["winmap"], x,
+                                        compute_dtype=compute, **tables)
+                plain = xs.spmm_block_ell_plain(t["inds"], vals, t["winmap"],
+                                                x, compute_dtype=compute)
+                err, ok, tol = compare(out, plain, storage)
+                if not ok:
+                    raise AssertionError(
+                        f"row 1 disagrees with its plain version on rank "
+                        f"{p}'s {name} shard at {pair_name(storage, compute)}"
+                        f": max err {err}"
+                    )
+                worst[pair_name(storage, compute)] = err
+                errs["row1"] = max(errs["row1"], err)
+            x16 = x32.to(torch.float16)
+            for qdtype in xs.QUANT_DTYPES:
+                q, e = quantized(op, qdtype, device, p)
+                out = xs.spmm_block_ell(t["inds"], q, t["winmap"], x16,
+                                        scales=e, **tables)
+                plain = xs.spmm_block_ell_plain(t["inds"], q, t["winmap"],
+                                                x16, scales=e)
+                err = float((out - plain).abs().max())
+                if not torch.equal(out, plain):
+                    raise AssertionError(
+                        f"row 1q ({qdtype}) differs from its plain version "
+                        f"on rank {p}'s {name} shard: max err {err}"
+                    )
+                worst[str(qdtype).split(".")[-1]] = err
+                errs["row1q"] = max(errs["row1q"], err)
+            rec = dict(operator=name, rank=p, shape=[b, s, r, k],
+                       buf=int(op.winmap.shape[-1]), max_abs_err=worst)
+            if device.type == "cuda":
+                vals = t["vals"].to(torch.float16)
+                rec["ms"] = cuda_ms(lambda: xs.spmm_block_ell(
+                    t["inds"], vals, t["winmap"], x16,
+                    compute_dtype=torch.float32, **tables), 20)
+                rec.update(bound(b * s * r * k, 2, op.cols_per_dev * FUSE * 2,
+                                 b * r * FUSE * 4))
+            shards.append(rec)
+            log(f"mesh shard {name} rank {p} {[b, s, r, k]} BUF "
+                f"{rec['buf']}: max abs err vs plain "
+                + ", ".join(f"{k_} {v:.3e}" for k_, v in worst.items())
+                + " (row 1 at the pairs' tolerances, row 1q exact)"
+                + (f" | row 1 mixed {rec['ms']:.4f} ms, bound "
+                   f"{rec['bound_ms']:.4f} ms" if "ms" in rec else ""))
+            del t
+    return errs, shards
+
+
+def mesh_topology(device):
+    """Four ranks on one card: a 2x2 ``DeviceMesh`` of ``device``, data
+    axes ("model", "data") -- a socket level of 2, a node level of 2."""
+    from repro_torch.dist import Topology
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[device] * 4)
+    topo = Topology.from_mesh(mesh, data_axes=("model", "data"),
+                              batch_axes=())
+    log(f"{mesh!r}\n{topo.describe()}")
+    return topo
+
+
+def mesh_path(plan1, plan4, a, device, runs_p1, slices=SLICES, fuse=FUSE,
+              iters=ITERS):
+    """Phase 6: one application under each mode, then the 30-iteration
+    solves, over four ranks of one card.  Returns (checks, solves); the
+    caller reads the launch counts around it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.data.phantom import phantom_slices, simulate_measurements
+    from repro_torch.kernels import xct_spmm as xs
+
+    topo = mesh_topology(device)
+    n = plan1.geo.n
+    x_true = phantom_slices(n, slices, seed=0)
+    sino = simulate_measurements(a, x_true, seed=0)
+    cuda = device.type == "cuda"
+    card = topo.rank_devices()[0]
+
+    def bind(precision, mode="direct", wire="native", plan=plan4):
+        cfg = ReconConfig(precision=precision, comm_mode=mode, wire=wire,
+                          fuse=fuse)
+        if plan is plan1:
+            return Reconstructor(plan, cfg=cfg, device=device)
+        rec = Reconstructor(plan, cfg=cfg, topology=topo)
+        where = {t.device for arrs in rec._arrays for t in arrs.values()}
+        if rec.devices != [card] * 4 or where != {card}:
+            raise AssertionError(f"rank arrays on {where}, not {card}")
+        return rec
+
+    def apply_once(rec):
+        return rec.project(x_true), rec.backproject(sino)
+
+    def rel(got, ref):
+        return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+    checks = {}
+
+    def check(label, got, ref, tol):
+        errs = [rel(g, r) for g, r in zip(got, ref)]
+        checks[label] = dict(project=errs[0], backproject=errs[1], tol=tol)
+        log(f"mesh check {label}: project {errs[0]:.3e}, backproject "
+            f"{errs[1]:.3e} of max|ref| (tolerance {tol:g})")
+        if not max(errs) < tol:
+            raise AssertionError(f"mesh check {label} fails its tolerance")
+
+    p1 = apply_once(bind("single", plan=plan1))
+    outs = {}
+    for precision in ("single", "mixed"):
+        for mode in MODES:
+            before = dict(xs.LAUNCHES)
+            outs[precision, mode] = apply_once(bind(precision, mode))
+            count = {k: v - before[k] for k, v in xs.LAUNCHES.items()
+                     if v != before[k]}
+            # 4 ranks x (slices / fuse) minibatches x 2 applications
+            want = {"sorted": 4 * (slices // fuse) * 2}
+            if cuda and count != want:
+                raise AssertionError(f"{precision}/{mode}: launches "
+                                     f"{count}, expected {want}")
+            if precision == "single":
+                check(f"P=4 {mode} single vs P=1 single",
+                      outs[precision, mode], p1, 1e-4)
+            elif mode != "direct":
+                check(f"P=4 {mode} mixed vs P=4 direct mixed",
+                      outs[precision, mode], outs["mixed", "direct"], 5e-3)
+    check("P=4 hier-sparse single vs P=4 direct single",
+          outs["single", "hier-sparse"], outs["single", "direct"], 2e-6)
+    for precision in ("mixed", "q8"):
+        got = apply_once(bind(precision, "hier-sparse", "q8"))
+        check(f"P=4 hier-sparse wire=q8 {precision} vs P=4 direct mixed",
+              got, outs["mixed", "direct"], 2.5e-2)
+    del outs, p1
+
+    solves = {}
+    expected = 4 * (slices // fuse) * 2 * (iters + 1)
+    for key, precision, mode, wire in MESH_SOLVES:
+        rec = bind(precision, mode, wire)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(xs.LAUNCHES)
+        t0 = time.perf_counter()
+        x, res = rec.reconstruct(sino, iters=iters)
+        wall = time.perf_counter() - t0
+        count = {k: v - before[k] for k, v in xs.LAUNCHES.items()
+                 if v != before[k]}
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        err = np.linalg.norm(x - x_true, axis=0) / np.linalg.norm(
+            x_true, axis=0)
+        # the int8 wire is held to PERF.md's limit for reduced precision
+        # (single + 0.03); a native wire to its own policy's P=1 solve
+        base = "single" if wire == "q8" else precision
+        ref = runs_p1[base]["rel"]
+        if wire == "q8":
+            ok, limit = err.mean() <= ref + 0.03, f"<= {ref + 0.03:.4f}"
+        else:
+            ok, limit = abs(err.mean() - ref) <= 0.01, f"{ref:.4f} +- 0.01"
+        log(f"solve {key}: {iters} iters x {slices} slices over 4 ranks in "
+            f"{wall:.2f} s | rel err mean {err.mean():.4f} (P=1 {base} "
+            f"{ref:.4f}, limit {limit}) | residual {res[0].mean():.4e} -> "
+            f"{res[-1].mean():.4e} | kernel launches {count} | peak device "
+            f"memory {peak / 2**30:.2f} GiB")
+        if not np.isfinite(x).all() or x.shape != x_true.shape:
+            raise AssertionError(f"{key}: non-finite or misshapen solution")
+        if not (res[-1] < 0.05 * res[0]).all():
+            raise AssertionError(f"{key}: residual did not fall 20x")
+        if not ok:
+            raise AssertionError(f"{key}: rel err {err.mean():.4f} against "
+                                 f"the P=1 solve's {ref:.4f}")
+        kernel = "sorted_q" if rec.policy.quantized else "sorted"
+        if cuda and count != {kernel: expected}:
+            raise AssertionError(f"{key}: launches {count}, expected "
+                                 f"{{{kernel!r}: {expected}}}")
+        solves[key] = dict(rel=float(err.mean()), wall_s=wall,
+                           peak_bytes=int(peak), launches=count,
+                           comm_mode=mode, wire=wire, precision=precision,
+                           ranks=4)
+        del rec
+    return checks, solves
+
+
 def dev_us(e):
     """Device time of one ``key_averages()`` row, in microseconds."""
     return getattr(e, "self_device_time_total", None) or getattr(
@@ -557,8 +816,10 @@ def device_ms(fn, name="xct_spmm_kernel"):
 
 
 def profile_solve(plan, a, device, precision="mixed", slices=SLICES,
-                  fuse=FUSE, iters=ITERS):
-    """Phase 4: where a solve's device time goes (torch.profiler).
+                  fuse=FUSE, iters=ITERS, topology=None, rows=8, **extra):
+    """Phase 4: where a solve's device time goes (torch.profiler); with
+    ``topology`` the ranks of a mesh (``device`` is then unused) and
+    ``extra`` ReconConfig fields such as ``comm_mode``.
 
     Returns {wall_s, device_s, busy_share, top: [(name, ms, calls)]};
     device_s is None when the profiler saw no device activity."""
@@ -570,8 +831,11 @@ def profile_solve(plan, a, device, precision="mixed", slices=SLICES,
     from repro_torch.data.phantom import phantom_slices, simulate_measurements
 
     x_true = phantom_slices(plan.geo.n, slices, seed=0)
-    rec = Reconstructor(plan, cfg=ReconConfig(precision=precision, fuse=fuse),
-                        device=device)
+    cfg = ReconConfig(precision=precision, fuse=fuse, **extra)
+    rec = (Reconstructor(plan, cfg=cfg, device=device) if topology is None
+           else Reconstructor(plan, cfg=cfg, topology=topology))
+    label = "/".join([precision] + [str(v) for v in extra.values()]) + (
+        "" if topology is None else f" P={topology.n_data}")
     staged = rec.stage_sino(simulate_measurements(a, x_true, seed=0))
     rec.reconstruct(staged, iters=1)  # warm-up outside the window
     torch.cuda.synchronize()
@@ -584,23 +848,24 @@ def profile_solve(plan, a, device, precision="mixed", slices=SLICES,
 
     # device-side events only (kernels, copies): an operator's row
     # repeats the time of the kernels it launched
-    rows = sorted(
+    events = sorted(
         ((e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
         key=lambda r: -r[1],
     )
-    device_s = sum(r[1] for r in rows) / 1e3 if rows else None
+    device_s = sum(r[1] for r in events) / 1e3 if events else None
     if device_s is None:
-        log(f"profile {precision} solve: no device time in the trace (not "
+        log(f"profile {label} solve: no device time in the trace (not "
             "measured)")
     else:
-        log(f"profile {precision} solve (profiler on): wall {wall:.3f} s, device "
-            f"busy {device_s:.3f} s, idle share {1 - device_s / wall:.3f}")
-        for name, ms, calls in rows[:8]:
+        log(f"profile {label} solve (profiler on): wall {wall:.3f} s, "
+            f"device busy {device_s:.3f} s, idle share "
+            f"{1 - device_s / wall:.3f}")
+        for name, ms, calls in events[:rows]:
             log(f"  {ms:9.2f} ms {calls:6d} calls  {name[:90]}")
     return dict(wall_s=wall, device_s=device_s,
                 busy_share=None if device_s is None else device_s / wall,
-                top=[[n[:90], ms, c] for n, ms, c in rows[:8]])
+                top=[[n[:90], ms, c] for n, ms, c in events[:rows]])
 
 
 def cuda_ms(fn, reps, warm=2):
@@ -841,6 +1106,7 @@ def main():
     from repro_torch.kernels import xct_spmm as xs
 
     device = torch.device("cuda")
+    start = time.perf_counter()
     card = card_line()
     log(f"card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
@@ -852,9 +1118,15 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
+    def phase(name):
+        log(f"[{time.perf_counter() - start:7.1f} s] {name}")
+
+    phase("phase 2a: the kernel sweep")
     sweep_errs = check_sweep(device)
     geo, a, plan = build_problem(N, ANGLES)
+    phase("phase 2b: the n=512 shards")
     shard_errs = check_shards(plan, device)
+    phase("phase 3: the main path")
     xs.reset_launches()
     runs = main_path(plan, a, device)
     launches = dict(xs.LAUNCHES)
@@ -872,19 +1144,41 @@ def main():
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    phase("phase 6: the exchange over a mesh")
+    plan4, mesh_tables = build_mesh_plan(geo, a)
+    mesh_errs, mesh_shards = check_mesh_shards(plan4, device)
+    xs.reset_launches()
+    mesh_checks, mesh_solves = mesh_path(plan, plan4, a, device, runs)
+    mesh_launches = dict(xs.LAUNCHES)
+    log(f"mesh path launches per kernel: {mesh_launches}")
+    if mesh_launches["sorted"] == 0 or mesh_launches["sorted_q"] == 0:
+        raise AssertionError("rows 1 and 1q must both run on the mesh path")
+    counts["row1"] += mesh_launches["sorted"]
+    counts["row1q"] += mesh_launches["sorted_q"]
+    runs.update(mesh_solves)
     # phase 5 before phase 4: a torch.profiler session leaves every later
     # launch slower on the host, which the chunked row 4 would measure
+    phase("phase 5: times")
     timing = times(plan, a, device)
+    phase("phase 4: profiles")
     profiles = {p: profile_solve(plan, a, device, precision=p)
                 for p in ("mixed", "q8")}
+    profiles["p4_hier-sparse_mixed"] = profile_solve(
+        plan4, a, device, precision="mixed", topology=mesh_topology(device),
+        rows=16, comm_mode="hier-sparse",
+    )
     kernels = []
     for key, name, replaces in KERNELS:
         kernels.append(entry(
             key, name, replaces, counts[key],
-            max(sweep_errs[key], shard_errs[key]), timing[key],
+            max(sweep_errs[key], shard_errs[key], mesh_errs.get(key, 0.0)),
+            timing[key],
         ))
     kernels[0]["solves"] = runs
     kernels[0]["profiles"] = profiles
+    kernels[0]["mesh"] = dict(checks=mesh_checks, tables=mesh_tables,
+                              launches=mesh_launches, shards=mesh_shards)
+    phase("done")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

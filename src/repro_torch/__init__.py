@@ -1,4 +1,4 @@
-"""Petascale XCT reconstruction on one NVIDIA Hopper GPU, in PyTorch.
+"""Petascale XCT reconstruction on NVIDIA Hopper GPUs, in PyTorch.
 
 The PyTorch/CUDA port of :mod:`repro`, module for module:
 
@@ -6,8 +6,10 @@ The PyTorch/CUDA port of :mod:`repro`, module for module:
               pipeline, CGNR solver, ``Reconstructor``
   kernels  -- the hand-written blocked-ELL SpMM kernel (``csrc/``), its
               plain PyTorch version and the dispatching ``apply_operator``
+  dist     -- the communication ladder (``Topology``, ``CommPlan``) and
+              the partial-data exchange over the ranks of a mesh
   data     -- phantoms and measurement simulation
-  launch   -- the reconstruction CLI
+  launch   -- the reconstruction CLI and device meshes
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

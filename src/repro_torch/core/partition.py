@@ -18,6 +18,11 @@ Implements the paper's Sec. III-A (the planning half of the reference's
 Per-nnz storage is 4 bytes -- int16 window index + fp16 length -- matching
 the paper's ``{unsigned short ind; half len;}`` packing (Sec. III-C2).
 
+The partial outputs of a device cover only a *band* of the
+(Hilbert-ordered) output rows; :func:`build_sparse_exchange` and
+:func:`build_hier_sparse_exchange` turn the bands into the static tables
+of the footprint exchange in ``dist.collectives`` (paper Fig. 6-7).
+
 A plan is pure numpy: :func:`plan_to_arrays` / :func:`plan_from_arrays`
 carry one across as a flat ``{name: ndarray}`` dict (what weights are to
 a model, the plan is to this system).
@@ -25,6 +30,8 @@ a model, the plan is to this system).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import math
 
 import numpy as np
@@ -38,8 +45,14 @@ __all__ = [
     "OperatorShards",
     "Plan",
     "build_plan",
+    "build_sparse_exchange",
+    "build_hier_sparse_exchange",
     "default_socket",
+    "estimate_hier_sparse",
+    "exchange_volume_params",
+    "hier_sparse_wire_bytes",
     "plan_from_arrays",
+    "plan_key",
     "plan_to_arrays",
     "socket_chunk_layout",
 ]
@@ -519,6 +532,235 @@ def build_plan(
     )
 
 
+def build_sparse_exchange(
+    op: OperatorShards,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Static index tables for the footprint-compressed exchange.
+
+    For every (sender p, receiver q) pair, the virtual-row slots of p
+    whose global row lands in q's owned chunk (split rows contribute one
+    entry per virtual row; the receiver scatter-add sums them).  Padding:
+    send indices point at the appended zero row (``flat_rows``), receive
+    indices at the trash row (``rows_per_dev``) -- see
+    ``dist.collectives.sparse_exchange``.
+
+    Returns ``(send_idx [P,P,V], recv_idx [P,P,V], V)``.
+    """
+    P = op.inds.shape[0]
+    rpd = op.rows_per_dev
+    counts = np.zeros((P, P), dtype=np.int64)
+    pair_rows: dict[tuple[int, int], tuple] = {}
+    for p in range(P):
+        rm = op.row_map[p].reshape(-1)  # [B*R] global row per vrow slot
+        flat = np.flatnonzero(rm < op.n_rows_pad)
+        if flat.size == 0:
+            continue
+        rows = rm[flat].astype(np.int64)
+        owner = rows // rpd
+        order = np.argsort(owner, kind="stable")
+        rows_s, flat_s, owner_s = rows[order], flat[order], owner[order]
+        uq, start = np.unique(owner_s, return_index=True)
+        bounds = np.append(start, owner_s.size)
+        for i, q in enumerate(uq):
+            sel = slice(bounds[i], bounds[i + 1])
+            pair_rows[(p, int(q))] = (rows_s[sel], flat_s[sel])
+            counts[p, q] = bounds[i + 1] - bounds[i]
+    v = _pad_to(max(1, int(counts.max())), 8)
+    flat_rows = op.flat_rows
+    send = np.full((P, P, v), flat_rows, dtype=np.int32)
+    recv = np.full((P, P, v), rpd, dtype=np.int32)
+    for (p, q), (rows, flat) in pair_rows.items():
+        send[p, q, : rows.size] = flat
+        recv[q, p, : rows.size] = rows - q * rpd
+    return send, recv, v
+
+
+def build_hier_sparse_exchange(
+    op: OperatorShards, fast: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:
+    """Static tables for the *hierarchical* footprint exchange
+    (plan mode ``hier-sparse``).
+
+    Devices are linearized fast-axis-major (``p = f * n_slow + t``, the
+    rank order of ``dist.topology``): a *socket* ``t`` is the group of
+    ``G = fast`` devices that share the fast link.  Socket members' band
+    footprints overlap (paper Fig. 6-7: nearby Hilbert chunks shadow the
+    same output rows), so instead of every member shipping its own copy
+    across the slow links (flat ``sparse``), the socket first merges:
+
+      stage 1   every member scatter-adds its band into the socket's
+                *merged band* -- the union of member footprints, laid out
+                grouped by the owner device's fast index ``f`` and padded
+                to ``W`` rows per group -- and a reduce-scatter over the
+                fast axis leaves member ``f`` holding group ``f``, fully
+                summed within the socket (the dedup: overlapping rows
+                cross the fast link once instead of the slow link
+                ``G`` times);
+      stage 2   member ``f``'s group contains exactly the rows owned by
+                devices ``(f, t')``, so one sparse all-to-all over the
+                *slow* axes delivers every row straight to its owner --
+                no post-exchange intra-socket routing;
+      stage 3   the owner scatter-adds received slots into its chunk.
+
+    Returns ``(socket_map [P, flat_rows], send2 [P, n_slow, V2],
+    recv2 [P, n_slow, V2], W, V2)``:
+
+      socket_map  merged-band slot per local band slot (trash = G*W)
+      send2       per slow peer, slots of my W-group to ship (pad = W)
+      recv2       owned-chunk row per incoming slot (pad = rows_per_dev)
+    """
+    P = op.inds.shape[0]
+    if P % fast:
+        raise ValueError(f"fast size {fast} does not divide P={P}")
+    G, n_slow = fast, P // fast
+    rpd = op.rows_per_dev
+    # per-device valid (band slot, global row) from the virtual-row map
+    dev_slots, dev_rows = [], []
+    for p in range(P):
+        rm = op.row_map[p].reshape(-1)
+        sl = np.flatnonzero(rm < op.n_rows_pad)
+        dev_slots.append(sl)
+        dev_rows.append(rm[sl].astype(np.int64))
+
+    # merged band per socket: union of member rows, grouped by the owner's
+    # fast index (monotone in row, so the union stays sorted per group)
+    sockets = []  # per t: (uniq_rows, owner_fast, group_starts)
+    w = 1
+    for t in range(n_slow):
+        allr = np.concatenate(
+            [dev_rows[f * n_slow + t] for f in range(G)]
+        )
+        uniq = np.unique(allr)
+        owner_f = (uniq // rpd) // n_slow
+        counts = np.bincount(owner_f, minlength=G)
+        w = max(w, int(counts.max()))
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        sockets.append((uniq, owner_f, starts))
+    w = _pad_to(w, 8)
+
+    flat_rows = op.flat_rows
+    socket_map = np.full((P, flat_rows), G * w, dtype=np.int32)
+    for p in range(P):
+        t = p % n_slow
+        uniq, owner_f, starts = sockets[t]
+        if dev_rows[p].size == 0:
+            continue
+        i = np.searchsorted(uniq, dev_rows[p])
+        socket_map[p, dev_slots[p]] = (
+            owner_f[i] * w + (i - starts[owner_f[i]])
+        ).astype(np.int32)
+
+    # stage 2: per (socket t, fast f), the W-group rows split by the
+    # owner's slow index; sender (f, t) block t' pairs with receiver
+    # (f, t') block t
+    v2 = 1
+    group_rows: dict[tuple[int, int], list] = {}
+    for t in range(n_slow):
+        uniq, owner_f, starts = sockets[t]
+        for f in range(G):
+            rows = uniq[owner_f == f]  # W-group of member (f, t), sorted
+            owner_t = (rows // rpd) % n_slow
+            per_peer = [
+                (np.flatnonzero(owner_t == t2), rows[owner_t == t2])
+                for t2 in range(n_slow)
+            ]
+            group_rows[(f, t)] = per_peer
+            if per_peer:
+                v2 = max(v2, max(w_.size for w_, _ in per_peer))
+    v2 = _pad_to(v2, 8)
+
+    send2 = np.full((P, n_slow, v2), w, dtype=np.int32)
+    recv2 = np.full((P, n_slow, v2), rpd, dtype=np.int32)
+    for p in range(P):
+        f, t = p // n_slow, p % n_slow
+        for t2, (slots, rows) in enumerate(group_rows[(f, t)]):
+            send2[p, t2, : slots.size] = slots
+            q = f * n_slow + t2  # receiver of this block
+            recv2[q, t, : rows.size] = rows - q * rpd
+    return socket_map, send2, recv2, w, v2
+
+
+def estimate_hier_sparse(
+    op: OperatorShards,
+    fast: int,
+    n_slow: int,
+    *,
+    socket_aware: bool | None = None,
+) -> tuple[int, int]:
+    """Estimated ``(W, V2)`` for abstract plans (no tables built).
+
+    Two union models, selected by the plan's chunk layout:
+
+      * legacy scattered layout (``PartitionConfig(socket=1)``): socket
+        members' footprints are independent draws of ``est_foot`` rows
+        from the padded row space, so the merged band is
+        ``R * (1 - (1 - foot/R)^G)`` rows;
+      * socket-aware layout (``socket=G``; the default the reference's
+        dry-run sweep picked): members own *G
+        consecutive* Hilbert chunks, i.e. one contiguous subdomain
+        covering ``1/n_slow`` of the curve, so the union follows the
+        same sqrt shadow law as a single subdomain's footprint:
+        ``min(R, 1.9 * R / sqrt(n_slow))``.  The constant is calibrated
+        against measured ``build_hier_sparse_exchange`` tables at
+        n in [32, 64] (est/real W in [0.9, 1.6], as the reference
+        package's partition tests pin it) the same way ``estimate_plan``'s
+        constants were.  At xct-brain scale the adjacent model is ~2.3x
+        tighter than the independent-draw union (which overstates W for
+        socket-aware plans).
+
+    ``socket_aware=None`` infers the layout from the operator's
+    ``est_socket`` attribute (attached by the reference's
+    ``estimate_plan`` from ``cfg.socket``; not ported yet, ROADMAP.md).
+    ``V2`` carries the usual ~1.6x imbalance margin over the even split
+    of a W-group across slow peers.
+    """
+    rows = float(op.n_rows_pad)
+    foot = float(getattr(op, "est_foot", 0.0)) or 1.8 * rows / math.sqrt(
+        max(1, fast * n_slow)
+    )
+    if socket_aware is None:
+        socket_aware = fast > 1 and getattr(op, "est_socket", 1) == fast
+    if socket_aware:
+        union = max(
+            foot, min(rows, 1.9 * rows / math.sqrt(max(1, n_slow)))
+        )
+    else:
+        union = rows * (1.0 - (1.0 - min(1.0, foot / rows)) ** fast)
+    w = _pad_to(max(8, int(math.ceil(union / fast))), 8)
+    v2 = _pad_to(max(8, int(1.6 * w / max(1, n_slow))), 8)
+    return w, v2
+
+
+def hier_sparse_wire_bytes(
+    v2: int,
+    n_slow: int,
+    f: int,
+    *,
+    comm_bytes: int = 2,
+    wire: str = "native",
+) -> int:
+    """Per-device DCI payload of one hier-sparse slow-axis all-to-all.
+
+    ``native`` ships the partial sums in the policy's wire dtype:
+    ``n_slow * V2 * F * comm_bytes``.  ``q8`` ships int8 values plus one
+    f32 inverse scale per (slow peer, fused slice) -- the per-band
+    compression ``dist.collectives.sparse_exchange(wire="q8")`` applies
+    around the all-to-all:
+
+    >>> hier_sparse_wire_bytes(1024, 4, 16, comm_bytes=2)
+    131072
+    >>> hier_sparse_wire_bytes(1024, 4, 16, comm_bytes=2, wire="q8")
+    65792
+    >>> _ / 131072  # doctest: +ELLIPSIS
+    0.501953125
+    """
+    if wire == "native":
+        return n_slow * v2 * f * comm_bytes
+    if wire == "q8":
+        return n_slow * v2 * f * 1 + n_slow * f * 4
+    raise ValueError(f"unknown wire {wire!r}; one of ('native', 'q8')")
+
+
 def default_socket(p_data: int, fast: int) -> int:
     """The socket layout a driver should use for a ``fast``-wide ladder.
 
@@ -530,6 +772,107 @@ def default_socket(p_data: int, fast: int) -> int:
     device count, else the legacy scattered layout.
     """
     return fast if fast > 1 and p_data % fast == 0 else 1
+
+
+def _key_scalar(v):
+    """Canonicalize one fingerprint value (see :func:`plan_key`)."""
+    if v is None or isinstance(v, (bool, int, str)):
+        return v
+    if isinstance(v, float):
+        # repr round-trips doubles exactly; 1.0 and 1 must not collide
+        # with each other across runs, so floats keep a "f:" tag
+        return f"f:{v!r}"
+    if isinstance(v, type) or isinstance(v, np.dtype):
+        return np.dtype(v).name  # np.int16 / "int16" / dtype -> one name
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return {
+            f.name: _key_scalar(getattr(v, f.name))
+            for f in dataclasses.fields(v)
+        }
+    raise TypeError(
+        f"plan_key cannot fingerprint {type(v).__name__}: {v!r} "
+        "(pass scalars, dtypes, or dataclasses of those)"
+    )
+
+
+def plan_key(
+    geo: XCTGeometry, cfg: PartitionConfig = PartitionConfig(), **runtime
+) -> str:
+    """Stable fingerprint of everything that shapes a compiled plan.
+
+    Two jobs share a cold path -- partition + winseg build + kernel
+    compile -- exactly when they agree on (a) the scan geometry, (b) the
+    decomposition/block layout (``PartitionConfig``: P_d, tile, R, K,
+    the index/value dtype packing, socket layout) and (c) whichever
+    runtime knobs the caller folds in (a serving layer passes the full
+    ``ReconConfig``: precision ladder, comm mode, fuse, staging/DMA
+    mode).  ``plan_key`` hashes all of it into one short stable string
+    so a plan cache can amortize the cold path across jobs.  It gives
+    the reference package's key for the same inputs.
+
+    Properties a plan cache relies on:
+
+      * deterministic across processes (no ``hash()`` randomization --
+        the digest is sha256 over a canonical JSON encoding);
+      * kwargs order never matters (``precision=..., comm_mode=...`` ==
+        ``comm_mode=..., precision=...``: keys are sorted);
+      * near-miss configs do NOT collide: a different value dtype, a
+        different socket, a different comm/dma mode each change the key;
+      * equivalent geometries DO collide (``n_det=None`` vs an explicit
+        ``n_det=n`` name the same scan, so they share a cache entry).
+
+    ``runtime`` values may be scalars, dtypes, or dataclasses of those
+    (e.g. ``recon=ReconConfig(...)``); anything else raises TypeError
+    rather than fingerprinting an unstable repr.
+    """
+    record = {
+        # geometry, canonicalized: num_det resolves the n_det=None alias
+        "geo": {
+            "n": geo.n,
+            "n_angles": geo.n_angles,
+            "num_det": geo.num_det,
+            "vox": _key_scalar(float(geo.vox)),
+        },
+        "partition": _key_scalar(cfg),
+        "runtime": {k: _key_scalar(v) for k, v in runtime.items()},
+    }
+    blob = json.dumps(record, sort_keys=True, separators=(",", ":"))
+    return "xct-" + hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def exchange_volume_params(op: OperatorShards, topo) -> dict:
+    """Wire-volume parameters for ``Topology.plan(mode, **params)``.
+
+    One call covers every mode (``direct``/``rs``/``hier`` ignore the
+    extras): ``pair_slots`` (flat sparse V), ``merged_rows`` (hier-sparse
+    G*W) and ``cross_rows`` (n_slow*V2) plus ``dense_rows``.  Exact table
+    capacities when the operator carries real shards; the analytic
+    estimates (``est_v`` / :func:`estimate_hier_sparse`) for abstract
+    ``estimate_plan`` shards.
+    """
+    fast = topo.levels[0].size if topo.levels else 1
+    n_slow = max(1, topo.n_data // fast)
+    # building the exact tables is O(P^2 V); memoize per ladder shape so
+    # sweeps interrogating many (mode, fuse) cells pay it once
+    cache = getattr(op, "_volume_params", None)
+    if cache is None:
+        cache = {}
+        op._volume_params = cache  # type: ignore[attr-defined]
+    key = (fast, n_slow)
+    if key not in cache:
+        if isinstance(op.row_map, np.ndarray):
+            _, _, v = build_sparse_exchange(op)
+            _, _, _, w, v2 = build_hier_sparse_exchange(op, fast)
+        else:
+            v = int(getattr(op, "est_v", 8))
+            w, v2 = estimate_hier_sparse(op, fast, n_slow)
+        cache[key] = {
+            "pair_slots": v,
+            "dense_rows": op.n_rows_pad,
+            "merged_rows": fast * w,
+            "cross_rows": n_slow * v2,
+        }
+    return dict(cache[key])
 
 
 _OP_ARRAYS = ("inds", "vals", "winmap", "row_map", "winsegs", "segoff")

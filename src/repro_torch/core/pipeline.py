@@ -6,9 +6,14 @@ One (back)projection over an I/O batch of ``Y`` slices is processed as
 order).  The paper overlaps the global reduction of minibatch ``i`` with
 the local work of minibatch ``i+1`` (Fig. 8).  ``overlap=True`` issues
 the work in that order -- kernel ``i``, then the reduction of ``i-1`` --
-and ``overlap=False`` serializes the two per minibatch.  On one GPU the
-reduction is a local scatter-add on the same stream, so both orders give
-the same result; side streams come with the multi-GPU exchange.
+and ``overlap=False`` serializes the two per minibatch.
+
+Over a mesh the kernel phase yields the ranks' bands (a list, one per
+rank) and the reduce phase turns them into the owned output; this module
+only orders the two.  Both run on the current stream of each rank's
+device, so both orders give the same result; side CUDA streams, which
+would let the reduction of ``i-1`` run beside kernel ``i``, are not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,9 +35,10 @@ def pipelined_apply(
     """Apply ``reduce_fn(kernel_fn(chunk))`` over slice-minibatches.
 
     Args:
-      kernel_fn: [C, F] slab -> [band_rows, F] partial (local SpMM).
-      reduce_fn: [band_rows, F] partial -> [rows_out, F] owned chunk
-        (the communication phase).
+      kernel_fn: [C, F] slab -> the ranks' [band_rows, F] partials
+        (local SpMM on each rank).
+      reduce_fn: the ranks' partials -> [rows_out, F] owned output (the
+        communication phase).
       x_all: [C, Y] input slab, ``Y = n_mini * fuse``.
       fuse: minibatch size F (the paper's FFACTOR; 16 in their runs).
       overlap: issue kernel ``i`` before the reduction of ``i-1``

@@ -19,6 +19,11 @@ The quantized-operator rungs ``q8`` and ``fp8`` pack the operator
 *values* into int8 or fp8-e4m3 with one power-of-two exponent per
 (row-block, stage) (:func:`quantize_block_vals`); vectors and the wire
 stay at the ``mixed`` policy's f16 and compute at f32.
+
+Over several ranks, a list of per-rank tensors takes the place of the
+reference's ``axis_name``: the scale functions and :func:`qcast` give
+every rank the one factor of the group's max-norm (the reference's
+``pmax``), bit for bit.
 """
 from __future__ import annotations
 
@@ -163,15 +168,39 @@ def _norm_exponent(m, target: float):
     return torch.clamp(torch.round(_log2_ratio(target, m)), -100.0, 100.0)
 
 
+def _listed(x):
+    """``(tensors, many)``: a list or tuple of per-rank tensors stands for
+    the reference's ``axis_name``, the group of ranks that must share one
+    factor; one tensor is a group of one."""
+    many = isinstance(x, (list, tuple))
+    return (list(x) if many else [x]), many
+
+
+def _group_factor(xs, local_max, target: float) -> list:
+    """The one power-of-two factor of the group's max-norm, on each rank's
+    device.  The ranks' maxima reduce as the reference's ``pmax`` does;
+    max is exact, so the factor is the reference's bit for bit."""
+    m = local_max(xs[0])
+    for t in xs[1:]:
+        m = torch.maximum(m, local_max(t).to(m.device))
+    s = _pow2(_norm_exponent(m, target))
+    return [s.to(t.device) for t in xs]
+
+
 def adaptive_scale(x, target: float = 256.0):
     """Power-of-two factor steering ``max|x|`` to ``target`` (Sec. III-C1).
 
     Power-of-two so the scaling itself is lossless in any binary float
     format.  Returns the float32 scalar ``s`` such that ``x * s`` is
-    cast-safe; apply ``1/s`` after the round trip.
+    cast-safe; apply ``1/s`` after the round trip.  Given a list of
+    per-rank tensors (the reference's ``axis_name``), the max-norm is the
+    group's, and every rank gets the *same* factor, on its own device.
     """
-    m = torch.max(torch.abs(x.to(torch.float32)))
-    return _pow2(_norm_exponent(m, target))
+    xs, many = _listed(x)
+    s = _group_factor(
+        xs, lambda t: torch.max(torch.abs(t.to(torch.float32))), target
+    )
+    return s if many else s[0]
 
 
 def adaptive_scale_cols(x, target: float = 1.0):
@@ -179,10 +208,16 @@ def adaptive_scale_cols(x, target: float = 1.0):
 
     The paper's III-C1 applied to the evolving CG vectors: each fused
     slice gets its own factor (slices are independent problems with
-    independent dynamic ranges).  Returns ``s`` with shape ``[F]``.
+    independent dynamic ranges).  Returns ``s`` with shape ``[F]``; for a
+    list of per-rank row chunks, the group's factors on each rank's
+    device, as :func:`adaptive_scale`.
     """
-    m = torch.amax(torch.abs(x.to(torch.float32)), dim=0)
-    return _pow2(_norm_exponent(m, target))
+    xs, many = _listed(x)
+    s = _group_factor(
+        xs, lambda t: torch.amax(torch.abs(t.to(torch.float32)), dim=0),
+        target,
+    )
+    return s if many else s[0]
 
 
 def qcast(x, dtype, *, adaptive: bool = False, target: float = 256.0):
@@ -190,12 +225,20 @@ def qcast(x, dtype, *, adaptive: bool = False, target: float = 256.0):
 
     Returns ``(x_cast, inv_scale)``; multiply by ``inv_scale`` after the
     matching upcast.  For wide targets (f32/f64) this is a plain cast.
+    For a list of per-rank tensors both are lists, every rank cast with
+    the group's one factor (:func:`adaptive_scale`).
     """
+    xs, many = _listed(x)
     if dtype.itemsize >= 4 or not adaptive:
-        return x.to(dtype), torch.ones((), dtype=torch.float32,
-                                       device=x.device)
-    s = adaptive_scale(x, target=target)
-    return (x.to(torch.float32) * s).to(dtype), 1.0 / s
+        casts = [t.to(dtype) for t in xs]
+        invs = [torch.ones((), dtype=torch.float32, device=t.device)
+                for t in xs]
+    else:
+        s = adaptive_scale(xs, target=target)
+        casts = [(t.to(torch.float32) * si).to(dtype)
+                 for t, si in zip(xs, s)]
+        invs = [1.0 / si for si in s]
+    return (casts, invs) if many else (casts[0], invs[0])
 
 
 def _quant_target(dtype) -> float:

@@ -1,21 +1,31 @@
-"""End-to-end XCT reconstruction on one GPU (the paper's system, in PyTorch).
+"""End-to-end XCT reconstruction (the paper's system, in PyTorch).
 
-``Reconstructor`` binds a partition plan to one device and exposes
-``project`` / ``backproject`` / ``reconstruct``.  Every operator
-application runs per slice-minibatch: blocked-ELL SpMM (the CUDA kernel,
-or its plain version on the CPU) -> cast to the wire dtype with adaptive
-normalization -> scatter-add of the band into the owned rows -> CGNR
-update.  With one device the partial-data reduction of the ``direct``,
-``rs`` and ``hier`` modes is that local scatter-add; the sparse exchanges
-and ``n_data > 1`` come with the multi-GPU exchange (ROADMAP.md queue 1).
+``Reconstructor`` binds a partition plan to the ranks of a device mesh
+and exposes ``project`` / ``backproject`` / ``reconstruct``.  Every
+operator application runs per slice-minibatch: each rank's blocked-ELL
+SpMM on its shard (the CUDA kernel, or its plain version on the CPU) ->
+cast to the wire dtype with adaptive normalization, one factor for all
+ranks -> partial-data reduction (direct / reduce-scatter / hierarchical
+as a scatter-add plus the ``CommPlan`` ladder, or the sparse / hierarchical
+sparse footprint exchange) -> the owned chunks concatenated in rank order
+-> CGNR update.
+
+One process drives every rank, as the reference's ``shard_map`` does
+(``dist.DeviceMesh``).  Rank ``p`` holds shard ``p`` of every operator array
+on its mesh device; the CG vectors stay global on rank 0's device, split
+by rank into row chunks for the kernels.  Without a topology the
+reconstructor has one rank on ``device``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
+from ..dist import DeviceMesh, Topology
+from ..dist.collectives import sparse_exchange
 from ..kernels.ops import (
     apply_operator,
     check_supported,
@@ -23,7 +33,7 @@ from ..kernels.ops import (
     winmap_segments,
 )
 from ..resil.errors import NonFiniteSolveError
-from .partition import Plan
+from .partition import Plan, build_hier_sparse_exchange, build_sparse_exchange
 from .pipeline import pipelined_apply
 from .precision import (
     adaptive_scale_cols,
@@ -35,9 +45,7 @@ from .solver import cgnr
 
 __all__ = ["ReconConfig", "Reconstructor", "StagedSlab", "resolve_device"]
 
-# partial-data reductions that are a local scatter-add on one device
-_LOCAL_MODES = ("direct", "rs", "hier")
-_MULTI_GPU = "ROADMAP.md queue 1, the multi-GPU exchange"
+_SPARSE_MODES = ("sparse", "hier-sparse")
 
 
 def resolve_device(device) -> torch.device:
@@ -63,7 +71,7 @@ class StagedSlab:
     numpy slab to skip the host->device staging inside the solve.
     """
 
-    y: torch.Tensor  # [sino_pad, Y] f32 on the device, pre-scaled
+    y: torch.Tensor  # [sino_pad, Y] f32 on rank 0's device, pre-scaled
     scale: np.ndarray  # [Y] power-of-two per-slice normalization
     n_slices: int
 
@@ -72,7 +80,7 @@ class StagedSlab:
 class ReconConfig:
     precision: str = "mixed"  # paper ladder: double|single|half|mixed
     #   (+bf16 variants, +q8/fp8 quantized-operator tiers)
-    comm_mode: str = "hier"  # direct | rs | hier (sparse modes: multi-GPU)
+    comm_mode: str = "hier"  # direct | rs | hier | sparse | hier-sparse
     wire: str = "native"  # hier-sparse slow-axis wire: native | q8
     fuse: int = 16  # paper's minibatch size (FFACTOR)
     overlap: bool = True  # Fig. 8 pipelining order
@@ -85,43 +93,73 @@ class ReconConfig:
 
 
 class Reconstructor:
-    """Iterative reconstruction on one device.
+    """Iterative reconstruction over the ranks of a device mesh.
 
     Args:
-      plan: partition plan (``core.partition.build_plan``) with
-        ``n_data == 1``.
+      plan: partition plan (``core.partition.build_plan``).
       cfg: runtime configuration.
-      device: ``"cuda"`` (default) or ``"cpu"``; raises when CUDA is asked
-        for and absent.
-      mesh: the reference's device mesh; more than one device is not
-        ported yet, so anything but ``None`` raises.
+      device: ``"cuda"`` (default) or ``"cpu"`` for the one-rank default
+        topology; raises when CUDA is asked for and absent.
+      topology: ``dist.Topology.from_mesh(mesh, data_axes=...,
+        batch_axes=...)`` over a ``dist.DeviceMesh``; the data
+        levels' size product must equal ``plan.cfg.n_data``.  Default:
+        one rank on ``device`` (a 1x1 ``("data", "model")`` mesh with
+        data axis ``"model"``, as the reference's default).
     """
 
     def __init__(self, plan: Plan, cfg: ReconConfig = ReconConfig(),
-                 device=None, *, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a device mesh is not ported yet: {_MULTI_GPU}"
+                 device=None, *, topology: Topology | None = None):
+        if topology is None:
+            mesh = DeviceMesh([[resolve_device(device)]], ("data", "model"))
+            topology = Topology.from_mesh(
+                mesh, data_axes=("model",), batch_axes=("data",)
             )
-        if plan.cfg.n_data != 1:
-            raise NotImplementedError(
-                f"plan has n_data={plan.cfg.n_data}; more than one device "
-                f"is not ported yet: {_MULTI_GPU}"
+        elif device is not None:
+            raise ValueError(
+                "pass either device= (one rank) or topology=, not both"
             )
-        if cfg.comm_mode not in _LOCAL_MODES:
-            raise NotImplementedError(
-                f"comm_mode={cfg.comm_mode!r} is not ported yet "
-                f"({_MULTI_GPU}); one device runs {_LOCAL_MODES}"
+        if not isinstance(topology.mesh, DeviceMesh):
+            raise ValueError(
+                "Reconstructor needs a mesh-bound topology "
+                "(Topology.from_mesh over a DeviceMesh)"
             )
-        if cfg.wire != "native":
+        if cfg.wire not in ("native", "q8"):
+            raise ValueError(
+                f"unknown wire {cfg.wire!r}; one of ('native', 'q8')"
+            )
+        if cfg.wire == "q8" and cfg.comm_mode != "hier-sparse":
+            raise ValueError(
+                "wire='q8' compresses the hier-sparse slow-axis hop; "
+                f"comm_mode={cfg.comm_mode!r} has no such hop (use "
+                "comm_mode='hier-sparse' or wire='native')"
+            )
+        self.comm_plan = topology.plan(cfg.comm_mode)
+        if topology.n_data != plan.cfg.n_data:
+            raise ValueError(
+                f"plan has P_d={plan.cfg.n_data} but data axes "
+                f"{topology.data_axes} have size {topology.n_data}"
+            )
+        if topology.n_batch != 1:
             raise NotImplementedError(
-                f"wire={cfg.wire!r} compresses the hier-sparse hop, not "
-                f"ported yet: {_MULTI_GPU}"
+                f"batch axes {topology.batch_axes} of size "
+                f"{topology.n_batch}: only size 1 is ported (ROADMAP.md "
+                "queue 1, batch parallelism n_batch > 1)"
+            )
+        fast = topology.levels[0].size if topology.levels else 1
+        if plan.cfg.socket not in (1, fast):
+            warnings.warn(
+                f"plan was laid out for socket={plan.cfg.socket} but the "
+                f"topology's fast level is {fast}-wide; the hier-sparse "
+                "dedup will not see consecutive chunks per socket",
+                stacklevel=2,
             )
         check_supported(cfg.staging, cfg.dma)
         self.plan = plan
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.topology = topology
+        self.mesh = topology.mesh
+        self.devices = topology.rank_devices()
+        self.device = self.devices[0]
         self.policy = get_policy(cfg.precision)
         self._rank_rows = None  # lazy inverse row permutation
         self._rank_cols = None
@@ -180,15 +218,16 @@ class Reconstructor:
             self._rank_rows = rank
         return np.asarray(y_curve)[self._rank_rows]
 
-    def _upload(self, a) -> torch.Tensor:
-        """Host numpy or tensor -> device tensor through pinned memory,
-        without blocking the host (the copy is ordered on the current
-        stream)."""
+    def _upload(self, a, device=None) -> torch.Tensor:
+        """Host numpy or tensor -> tensor on ``device`` (default rank 0's)
+        through pinned memory, without blocking the host (the copy is
+        ordered on the current stream)."""
+        device = self.device if device is None else device
         t = (a.contiguous() if isinstance(a, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(a)))
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return t.to(device, non_blocking=True)
 
     def _download(self, t: torch.Tensor) -> np.ndarray:
         return t.detach().to("cpu").numpy()
@@ -196,9 +235,15 @@ class Reconstructor:
     # ------------------------------------------------------------------ #
     # device arrays
     # ------------------------------------------------------------------ #
-    def _device_arrays(self):
+    def _device_arrays(self) -> list:
+        """One dict per rank: shard ``p`` of every operator array (and of
+        the sparse-exchange tables) on rank ``p``'s device."""
         pol = self.policy
-        arrs = {}
+        mode = self.cfg.comm_mode
+        topo = self.topology
+        fast = topo.levels[0].size if topo.levels else 1
+        self._socket_rows: dict = {}  # static W per operator (hier-sparse)
+        ranks = [{} for _ in self.devices]
         for name, op in (("proj", self.plan.proj), ("back", self.plan.back)):
             if op.winsegs is not None and op.segoff is not None:
                 segs, off = op.winsegs, op.segoff
@@ -206,65 +251,123 @@ class Reconstructor:
                 segs, off = sort_segments_by_class(
                     winmap_segments(op.winmap), op.winmap.shape[-1]
                 )
-            arrs[f"{name}_inds"] = self._upload(op.inds[0])
-            if pol.quantized:
-                # pack once at bind time, on the host: int8/fp8 values and
-                # per-(block, stage) power-of-two dequant exponents the
-                # kernel applies inline
-                q, exp = quantize_block_vals(
-                    torch.from_numpy(op.vals[0]), pol.vals_dtype
+            tables = {}
+            if mode == "sparse":
+                tables["send"], tables["recv"], _ = build_sparse_exchange(op)
+            elif mode == "hier-sparse":
+                smap, send, recv, w, _ = build_hier_sparse_exchange(op, fast)
+                self._socket_rows[name] = w
+                tables.update(smap=smap, send=send, recv=recv)
+            for p, (arrs, dev) in enumerate(zip(ranks, self.devices)):
+                def up(a, dev=dev):
+                    return self._upload(a, dev)
+
+                arrs[f"{name}_inds"] = up(op.inds[p])
+                if pol.quantized:
+                    # pack once at bind time, on the host: int8/fp8 values
+                    # and per-(block, stage) power-of-two dequant exponents
+                    # the kernel applies inline
+                    q, exp = quantize_block_vals(
+                        torch.from_numpy(op.vals[p]), pol.vals_dtype
+                    )
+                    arrs[f"{name}_vals"] = up(q)
+                    arrs[f"{name}_vscale"] = up(exp)
+                else:
+                    arrs[f"{name}_vals"] = up(op.vals[p]).to(pol.storage)
+                arrs[f"{name}_winmap"] = up(op.winmap[p])
+                arrs[f"{name}_winsegs"] = up(segs[p].astype(np.int32))
+                arrs[f"{name}_segoff"] = up(off[p].astype(np.int32))
+                arrs[f"{name}_row_map"] = up(
+                    op.row_map[p].reshape(-1).astype(np.int64)
                 )
-                arrs[f"{name}_vals"] = self._upload(q)
-                arrs[f"{name}_vscale"] = self._upload(exp)
-            else:
-                arrs[f"{name}_vals"] = self._upload(op.vals[0]).to(
-                    pol.storage
-                )
-            arrs[f"{name}_winmap"] = self._upload(op.winmap[0])
-            arrs[f"{name}_winsegs"] = self._upload(segs[0].astype(np.int32))
-            arrs[f"{name}_segoff"] = self._upload(off[0].astype(np.int32))
-            arrs[f"{name}_row_map"] = self._upload(
-                op.row_map[0].reshape(-1).astype(np.int64)
-            )
-        return arrs
+                for key, table in tables.items():
+                    arrs[f"{name}_{key}"] = up(table[p].astype(np.int64))
+        return ranks
 
     # ------------------------------------------------------------------ #
-    # per-device compute
+    # per-rank compute
     # ------------------------------------------------------------------ #
     def _make_ops(self):
-        """Closures (project, backproject, dot_rows) on the device arrays."""
-        cfg, pol, a = self.cfg, self.policy, self._arrays
+        """Closures (project, backproject, dot_rows) over the ranks'
+        arrays; vectors are global on rank 0's device."""
+        cfg, pol, ranks = self.cfg, self.policy, self._arrays
+        devices, dev0 = self.devices, self.device
+        n_ranks = len(ranks)
+        sparse = cfg.comm_mode in _SPARSE_MODES
+        hier = cfg.comm_mode == "hier-sparse"
 
-        def one_operator(prefix, n_rows_pad):
+        def split(x, rows):
+            """Global [n * rows, F] -> per-rank row chunks on their
+            devices (views when a rank shares rank 0's device)."""
+            return [x[p * rows:(p + 1) * rows].to(d)
+                    for p, d in enumerate(devices)]
+
+        def gather(chunks):
+            """Owned chunks, rank order -> one tensor on rank 0's device."""
+            if n_ranks == 1:
+                return chunks[0].to(dev0)
+            return torch.cat([c.to(dev0) for c in chunks], dim=0)
+
+        def one_operator(prefix, op):
+            rows_out, cols = op.rows_per_dev, op.cols_per_dev
+            n_rows_pad = op.n_rows_pad
+
             def kernel(x_f):
-                return apply_operator(
-                    a[f"{prefix}_inds"],
-                    a[f"{prefix}_vals"],
-                    a[f"{prefix}_winmap"],
-                    x_f,
-                    storage_dtype=pol.storage,
-                    compute_dtype=pol.compute,
-                    use_ref=cfg.use_ref,
-                    staging=cfg.staging,
-                    dma=cfg.dma,
-                    winsegs=a[f"{prefix}_winsegs"],
-                    segoff=a[f"{prefix}_segoff"],
-                    smem_budget=cfg.smem_budget,
-                    scales=a.get(f"{prefix}_vscale"),
-                )
+                """The kernel phase: each rank's SpMM on its column
+                chunk, yielding the ranks' bands."""
+                return [
+                    apply_operator(
+                        a[f"{prefix}_inds"],
+                        a[f"{prefix}_vals"],
+                        a[f"{prefix}_winmap"],
+                        x_p,
+                        storage_dtype=pol.storage,
+                        compute_dtype=pol.compute,
+                        use_ref=cfg.use_ref,
+                        staging=cfg.staging,
+                        dma=cfg.dma,
+                        winsegs=a[f"{prefix}_winsegs"],
+                        segoff=a[f"{prefix}_segoff"],
+                        smem_budget=cfg.smem_budget,
+                        scales=a.get(f"{prefix}_vscale"),
+                    )
+                    for a, x_p in zip(ranks, split(x_f, cols))
+                ]
 
-            idx = a[f"{prefix}_row_map"]
-
-            def reduce(band):
-                bandc, inv = qcast(band, pol.comm, adaptive=pol.adaptive)
-                # scatter-ADD: split rows (virtual-row packing) may map
-                # several band slots onto one row; padding slots land in
-                # the trash row n_rows_pad, cut off below
-                full = torch.zeros(
-                    (n_rows_pad + 1, band.shape[-1]), dtype=bandc.dtype,
-                    device=band.device,
-                ).index_add_(0, idx, bandc)
-                return full[:n_rows_pad].to(torch.float32) * inv
+            def reduce(bands):
+                """The reduce phase: the ranks' bands -> the global owned
+                output [n_rows_pad, F] on rank 0's device."""
+                bandc, inv = qcast(bands, pol.comm, adaptive=pol.adaptive)
+                if sparse:
+                    chunks = sparse_exchange(
+                        bandc,
+                        [a[f"{prefix}_send"] for a in ranks],
+                        [a[f"{prefix}_recv"] for a in ranks],
+                        self.topology,
+                        rows_out,
+                        socket_map=(
+                            [a[f"{prefix}_smap"] for a in ranks]
+                            if hier else None
+                        ),
+                        socket_rows=(
+                            self._socket_rows[prefix] if hier else None
+                        ),
+                        wire=cfg.wire,
+                    )
+                else:
+                    # scatter-ADD: split rows (virtual-row packing) may
+                    # map several band slots onto one row; padding slots
+                    # land in the trash row n_rows_pad, cut off below
+                    fulls = [
+                        torch.zeros(
+                            (n_rows_pad + 1, b.shape[-1]), dtype=b.dtype,
+                            device=b.device,
+                        ).index_add_(0, a[f"{prefix}_row_map"], b)
+                        [:n_rows_pad]
+                        for a, b in zip(ranks, bandc)
+                    ]
+                    chunks = self.comm_plan.reduce_partials(fulls)
+                return gather(chunks).to(torch.float32) * inv[0]
 
             narrow = pol.storage_bytes < 4 or pol.compute.itemsize < 4
 
@@ -273,7 +376,8 @@ class Reconstructor:
                 if narrow:
                     # Paper III-C1: renormalize the evolving iterate per
                     # slice before every (back)projection so the fp16
-                    # accumulation never under/overflows.
+                    # accumulation never under/overflows; one factor per
+                    # slice for all ranks.
                     s = adaptive_scale_cols(x_all, 1.0)
                     x_all = (x_all.to(torch.float32) * s).to(pol.storage)
                     inv = 1.0 / s
@@ -284,12 +388,14 @@ class Reconstructor:
 
             return apply
 
-        project = one_operator("proj", self.plan.proj.n_rows_pad)
-        backproject = one_operator("back", self.plan.back.n_rows_pad)
+        project = one_operator("proj", self.plan.proj)
+        backproject = one_operator("back", self.plan.back)
 
         def dot_rows(u, v):
             # Scalar reductions always in f32: a half-mode dot over 1e6+
-            # entries overflows f16's 65504 range.
+            # entries overflows f16's 65504 range.  The vectors are
+            # global, so this sums every rank's rows (the reference's
+            # local sum + psum, in another order).
             return torch.sum(u.to(torch.float32) * v.to(torch.float32), dim=0)
 
         return project, backproject, dot_rows

@@ -1,1 +1,1 @@
-"""Drivers: reconstruction."""
+"""Drivers: reconstruction, and the device meshes ranks run on."""

@@ -1,9 +1,13 @@
-"""XCT reconstruction driver (the paper's workload) on one GPU.
+"""XCT reconstruction driver (the paper's workload) on one or more GPUs.
 
   PYTHONPATH=src python -m repro_torch.launch.recon --n 64 --angles 48 \
       --slices 8 --iters 20 --precision mixed --comm hier
 
 ``--device cpu`` runs the kernel's plain PyTorch version on the CPU.
+``--p-data P`` splits each slice over P ranks on a ``(1, P)`` mesh
+``("data", "model")``, the data axis ``"model"``: the first P cards, or P
+ranks sharing the CPU under ``--device cpu``; ``--comm`` picks the
+partial-data reduction among them.
 """
 from __future__ import annotations
 
@@ -13,9 +17,11 @@ import time
 import numpy as np
 
 from ..core.geometry import XCTGeometry, build_system_matrix
-from ..core.partition import PartitionConfig, build_plan
+from ..core.partition import PartitionConfig, build_plan, default_socket
 from ..core.recon import ReconConfig, Reconstructor, resolve_device
 from ..data.phantom import phantom_slices, simulate_measurements
+from ..dist import Topology
+from .mesh import make_mesh
 
 MODES = ("direct", "rs", "hier", "sparse", "hier-sparse")
 
@@ -59,31 +65,41 @@ def main(argv=None):
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             ap.error(f"{why} is not ported yet")
-    if args.p_data > 1:
-        ap.error(
-            "--p-data > 1 is not ported yet: ROADMAP.md queue 1, the "
-            "multi-GPU exchange"
-        )
-    if args.comm in ("sparse", "hier-sparse"):
-        ap.error(
-            f"--comm {args.comm} is not ported yet: ROADMAP.md queue 1, "
-            "the multi-GPU exchange"
-        )
+    if args.p_data < 1:
+        ap.error("--p-data must be at least 1")
 
-    device = resolve_device(args.device)  # before minutes of host build
+    # devices first, before minutes of host build: a missing card or too
+    # few cards raise here and never move the run to the CPU
+    device = resolve_device(args.device)
+    topology = None
+    if args.p_data > 1:
+        mesh = make_mesh(
+            (1, args.p_data), ("data", "model"),
+            devices=[device] * args.p_data if device.type == "cpu" else None,
+        )
+        topology = Topology.from_mesh(mesh)
+        print(topology.describe())
     geo = XCTGeometry(n=args.n, n_angles=args.angles)
     print(f"building system matrix ({geo.n_rays} rays x {geo.n_vox} vox)")
     a = build_system_matrix(geo)
-    # one device: the reference's tile 8, R=K=32, "runs" slot order
-    plan = build_plan(geo, PartitionConfig(), a=a)
-    rec = Reconstructor(
-        plan,
-        cfg=ReconConfig(
-            precision=args.precision, comm_mode=args.comm,
-            fuse=args.fuse, dma=args.dma,
+    # the reference's tile 8, R=K=32, "runs" slot order, and the
+    # socket-aware chunk layout for the one P-wide level
+    plan = build_plan(
+        geo,
+        PartitionConfig(
+            n_data=args.p_data,
+            socket=default_socket(args.p_data, args.p_data),
         ),
-        device=device,
+        a=a,
     )
+    cfg = ReconConfig(
+        precision=args.precision, comm_mode=args.comm, fuse=args.fuse,
+        dma=args.dma,
+    )
+    if topology is None:
+        rec = Reconstructor(plan, cfg=cfg, device=device)
+    else:
+        rec = Reconstructor(plan, cfg=cfg, topology=topology)
 
     x_true = phantom_slices(args.n, args.slices, seed=args.seed)
     sino = simulate_measurements(a, x_true, noise=args.noise,

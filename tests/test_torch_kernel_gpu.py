@@ -436,3 +436,83 @@ def test_cuda_reconstructor_matches_cpu(cuda, precision, extra):
     tol = 1e-4 if precision in ("single", "double") else 5e-3
     np.testing.assert_allclose(xg, xc, rtol=tol, atol=tol * np.abs(xc).max())
     np.testing.assert_allclose(rg, rc, rtol=tol, atol=tol * np.abs(rc).max())
+
+
+_MESH_PLAN: dict = {}
+
+
+def _mesh_plan():
+    """n=32 plan over four ranks, socket layout 2, with its operator."""
+    if not _MESH_PLAN:
+        from repro_torch.core.geometry import XCTGeometry, build_system_matrix
+        from repro_torch.core.partition import PartitionConfig, build_plan
+
+        geo = XCTGeometry(n=32, n_angles=48)
+        a = build_system_matrix(geo)
+        _MESH_PLAN["plan"] = build_plan(
+            geo, PartitionConfig(n_data=4, socket=2, tile=4,
+                                 rows_per_block=16, nnz_per_stage=16), a=a)
+        _MESH_PLAN["a"] = a
+    return _MESH_PLAN["plan"], _MESH_PLAN["a"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "mode,precision,wire",
+    [(m, p, "native") for p in ("single", "mixed")
+     for m in ("direct", "rs", "hier", "sparse", "hier-sparse")]
+    + [("hier-sparse", "mixed", "q8"), ("hier-sparse", "q8", "q8")],
+)
+def test_cuda_one_card_mesh_matches_cpu(cuda, mode, precision, wire,
+                                        monkeypatch):
+    """Four ranks on a 2x2 mesh of one card equal the same mesh on the
+    CPU (plain versions) under every mode; every rank's arrays and every
+    exchange tensor sit on the card; each rank launches the kernel once
+    per minibatch and application."""
+    from repro_torch.core import recon as trecon
+    from repro_torch.dist import Topology
+    from repro_torch.dist import topology as ttopo
+    from repro_torch.launch.mesh import make_mesh
+
+    plan, a = _mesh_plan()
+    cfg = trecon.ReconConfig(precision=precision, comm_mode=mode, fuse=2,
+                             wire=wire)
+
+    def topo(dev):
+        mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+        return Topology.from_mesh(mesh, data_axes=("model", "data"),
+                                  batch_axes=())
+
+    seen = []
+
+    def watch(fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            seen.extend(t.device for t in out)
+            return out
+        return wrapped
+
+    monkeypatch.setattr(trecon, "sparse_exchange",
+                        watch(trecon.sparse_exchange))
+    monkeypatch.setattr(ttopo.CommPlan, "reduce_partials",
+                        watch(ttopo.CommPlan.reduce_partials))
+    rg = trecon.Reconstructor(plan, cfg, topology=topo(cuda))
+    rc = trecon.Reconstructor(plan, cfg, topology=topo("cpu"))
+    card = torch.device("cuda", torch.cuda.current_device())
+    assert rg.devices == [card] * 4
+    assert {t.device for arrs in rg._arrays for t in arrs.values()} == {card}
+    rng = np.random.default_rng(5)
+    x = rng.random((plan.geo.n_vox, 4)).astype(np.float32)
+    y = (a @ x).astype(np.float32)
+    tol = 2.5e-2 if wire == "q8" else (1e-4 if precision == "single"
+                                       else 5e-3)
+    key = "sorted_q" if precision == "q8" else "sorted"
+    for fn, inp in (("project", x), ("backproject", y)):
+        txs.reset_launches()
+        seen.clear()
+        got = getattr(rg, fn)(inp)
+        assert txs.LAUNCHES[key] == 4 * 2  # four ranks, two minibatches
+        assert txs.spmm_block_ell.launches == 8
+        assert seen and set(seen) == {card}
+        ref = getattr(rc, fn)(inp)
+        assert np.abs(got - ref).max() < tol * np.abs(ref).max(), fn

@@ -245,3 +245,47 @@ def test_fp8_rounding_at_half_way_points_and_subnormals():
     np.testing.assert_array_equal(
         q.view(torch.uint8).numpy(), np.asarray(jq).view(np.uint8)
     )
+
+
+@pytest.mark.parametrize("fn", ["adaptive_scale", "adaptive_scale_cols",
+                                "qcast"])
+def test_group_factor_is_the_references_pmax(fn):
+    """A list of per-rank tensors stands for the reference's
+    ``axis_name``: every rank applies the one factor that ``pmax`` over
+    the ranks gives (the reference run here under ``vmap`` with a named
+    axis), bit for bit, each on its own device."""
+    import jax
+
+    rng = np.random.default_rng(9)
+    parts = (rng.standard_normal((4, 24, 5))
+             * np.exp2(rng.integers(-12, 12, size=(4, 1, 5)))
+             ).astype(np.float32)
+    parts[2, :, 1] = 0.0  # one rank with a zero slice
+    ranks = [torch.from_numpy(p) for p in parts]
+    if fn == "qcast":
+        jc, jinv = jax.vmap(
+            lambda x: jp.qcast(x, jnp.float16, adaptive=True,
+                               axis_name="r"), axis_name="r")(parts)
+        tc, tinv = tp.qcast(ranks, torch.float16, adaptive=True)
+        for p in range(4):
+            np.testing.assert_array_equal(
+                tc[p].view(torch.int16).numpy(),
+                np.asarray(jc[p]).view(np.int16))
+            np.testing.assert_array_equal(_bits(tinv[p].numpy()),
+                                          _bits(jinv[p]))
+        wide, ones = tp.qcast(ranks, torch.float32, adaptive=True)
+        assert all(torch.equal(w, r) for w, r in zip(wide, ranks))
+        assert all(float(o) == 1.0 for o in ones)
+        return
+    jref = jax.vmap(lambda x: getattr(jp, fn)(x, axis_name="r"),
+                    axis_name="r")(parts)
+    got = getattr(tp, fn)(ranks)
+    assert len(got) == 4
+    for p in range(4):
+        assert got[p].device == ranks[p].device
+        np.testing.assert_array_equal(_bits(got[p].numpy()),
+                                      _bits(jref[p]))
+    # the group's factor is the factor of the ranks' rows together
+    whole = getattr(tp, fn)(torch.from_numpy(parts.reshape(-1, 5)))
+    np.testing.assert_array_equal(_bits(got[0].numpy()),
+                                  _bits(whole.numpy()))

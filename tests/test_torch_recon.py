@@ -10,6 +10,8 @@ from repro.core.recon import Reconstructor as JaxReconstructor
 from repro_torch.core import geometry as tgeo
 from repro_torch.core import partition as tpart
 from repro_torch.core.recon import ReconConfig, Reconstructor
+from repro_torch.dist import Topology
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.resil.errors import NonFiniteSolveError
 
 
@@ -131,9 +133,10 @@ def test_bound_quantized_arrays_match_jax(small_system, port_plan,
     jrec = JaxReconstructor(
         plan, cfg=JaxConfig(precision=precision, comm_mode="rs", fuse=2)
     )
+    (arrays,) = rec._arrays  # one rank
     for name in ("proj", "back"):
-        vals = rec._arrays[f"{name}_vals"]
-        scale = rec._arrays[f"{name}_vscale"]
+        vals = arrays[f"{name}_vals"]
+        scale = arrays[f"{name}_vscale"]
         assert vals.dtype == rec.policy.vals_dtype
         assert scale.dtype == torch.int32
         jvals = np.asarray(jrec._arrays[f"{name}_vals"])[0]
@@ -182,21 +185,30 @@ def test_nonfinite_solve_raises(phantom32, port_plan):
 
 
 def test_unported_configurations_raise(small_system, phantom32, port_plan):
-    """What the port still lacks raises, naming ROADMAP.md; the staging,
-    dma and quantized configurations that once raised now solve."""
+    """What the port still lacks raises, naming ROADMAP.md; the sparse
+    modes, the int8 wire, ``n_data > 1`` over a mesh and the staging, dma
+    and quantized configurations that once raised now solve, and the
+    reference's checks raise its ``ValueError``."""
     geo, a, _ = small_system
     x_true, y = phantom32
-    for kw in (dict(comm_mode="sparse"), dict(comm_mode="hier-sparse"),
-               dict(wire="q8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _rec(port_plan, **kw)
-    for kw in (dict(staging="gather"), dict(dma="per_row"),
-               dict(precision="q8")):
-        rec = _rec(port_plan, **kw)
+
+    def solves(rec):
         x, res = rec.reconstruct(y, iters=8)
         assert x.shape == x_true.shape and np.isfinite(x).all()
         assert (res[-1] < res[0]).all()
-    for kw in (dict(staging="bogus"), dict(dma="bogus")):
+
+    # one rank: the sparse modes run on their P=1 tables
+    for kw in (dict(comm_mode="sparse"), dict(comm_mode="hier-sparse"),
+               dict(comm_mode="hier-sparse", wire="q8"),
+               dict(staging="gather"), dict(dma="per_row"),
+               dict(precision="q8")):
+        solves(_rec(port_plan, **kw))
+    # the int8 wire compresses the hier-sparse hop only (the reference's
+    # check); _rec's default mode is "rs"
+    with pytest.raises(ValueError, match="wire='q8'"):
+        _rec(port_plan, wire="q8")
+    for kw in (dict(staging="bogus"), dict(dma="bogus"),
+               dict(comm_mode="bogus"), dict(wire="bogus")):
         with pytest.raises(ValueError, match="unknown"):
             _rec(port_plan, **kw)
     multi = tpart.build_plan(
@@ -205,11 +217,26 @@ def test_unported_configurations_raise(small_system, phantom32, port_plan):
                               nnz_per_stage=16),
         a=a,
     )
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # without a topology there is one rank: the plan's two shards do not
+    # fit it
+    with pytest.raises(ValueError, match="P_d=2"):
         _rec(multi)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        Reconstructor(port_plan, device="cpu", mesh=object())
-    for mode in ("direct", "rs", "hier"):
+    two = Topology.from_mesh(
+        make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
+    )
+    for mode in ("rs", "hier-sparse"):
+        solves(Reconstructor(multi, ReconConfig(comm_mode=mode, fuse=2),
+                             topology=two))
+    # a topology of the wrong size for the plan
+    with pytest.raises(ValueError, match="P_d=1"):
+        Reconstructor(port_plan, ReconConfig(fuse=2), topology=two)
+    # slice batches over a batch axis are not ported
+    batched = Topology.from_mesh(
+        make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2)
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Reconstructor(port_plan, ReconConfig(fuse=2), topology=batched)
+    for mode in ("direct", "rs", "hier", "sparse", "hier-sparse"):
         assert _rec(port_plan, comm_mode=mode).cfg.comm_mode == mode
     with pytest.raises(ValueError, match="multiple"):
         _rec(port_plan).project(np.zeros((geo.n_vox, 3), np.float32))
@@ -245,9 +272,7 @@ def test_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize(
-    "argv",
-    [["--stream"], ["--trace", "t.json"], ["--tune-dir", "d"],
-     ["--p-data", "2"], ["--comm", "hier-sparse"], ["--comm", "sparse"]],
+    "argv", [["--stream"], ["--trace", "t.json"], ["--tune-dir", "d"]],
 )
 def test_cli_rejects_unported_options(argv, capsys):
     from repro_torch.launch import recon as cli
@@ -256,6 +281,44 @@ def test_cli_rejects_unported_options(argv, capsys):
         cli.main(["--device", "cpu"] + argv)
     assert ei.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("comm", ["hier", "sparse", "hier-sparse", "direct"])
+def test_cli_runs_p_data_4_on_cpu(comm, capsys):
+    """``--p-data 4`` splits each slice over four ranks sharing the CPU,
+    under every ``--comm`` (the sparse modes included)."""
+    from repro_torch.launch import recon as cli
+
+    x, res = cli.main(
+        ["--n", "32", "--angles", "48", "--slices", "4", "--iters", "5",
+         "--fuse", "2", "--precision", "mixed", "--p-data", "4",
+         "--comm", comm, "--device", "cpu"]
+    )
+    out = capsys.readouterr().out
+    assert "Topology over 4 devices, batch axes ('data',)" in out
+    assert "socket: axis 'model' x4" in out
+    assert "5 CG iters on 4 slices" in out
+    assert x.shape == (1024, 4) and np.isfinite(x).all()
+    assert res[-1, 0] < 0.5 * res[0, 0]
+
+
+def test_cli_p_data_needs_as_many_cards(monkeypatch):
+    """On ``cuda`` the ranks take one card each: too few cards raise and
+    say how many were found, before the host build; never the CPU."""
+    from repro_torch.launch import recon as cli
+
+    argv = ["--n", "16", "--angles", "8", "--slices", "4", "--iters", "1",
+            "--p-data", "4"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(cli, "build_system_matrix", None)  # never reached
+    with pytest.raises(RuntimeError, match="needs 4 CUDA devices and 2 are"):
+        cli.main(argv)
+    with pytest.raises(SystemExit):
+        cli.main(["--p-data", "0", "--device", "cpu"])
 
 
 def test_cli_passes_precision_and_dma(monkeypatch, capsys):
