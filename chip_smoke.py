@@ -18,10 +18,19 @@ Phases, each fatal on failure:
    ``fuse=16``, 30 CGNR iterations under ``mixed``, ``single``, ``q8``
    and ``fp8``; 5-iteration ``mixed`` solves under ``dma="per_row"`` and
    ``staging="gather"`` that must equal the default solve bit for bit;
-   one ``apply_operator`` per shard on unsorted segment tables; with
-   every kernel's launch count read around the phase;
+   one ``apply_operator`` per shard on unsorted segment tables; mixed
+   and q8 solves with ``overlap=False`` and ``overlap=True`` (the side
+   stream) in turns, three each, timed and all required to give the
+   first solve's bits; a (2, 1) ``("data", "model")`` mesh of
+   the card, two batch groups on the same plan, whose projections must
+   equal one group's bit for bit and whose solve's difference from the
+   P=1 solve is printed; the ``recon/solve`` span beside a host timer;
+   with every kernel's launch count read around the phase;
 4. profiled mixed and q8 solves: device time by kernel and the idle
    share (run after phase 5: a profiler session slows later launches);
+   per CUDA stream the device work's count and time, the time during
+   which an SpMM kernel and another stream's work ran at once, and the
+   ordered scatter's ``index_add_`` and gather calls;
 5. per-application times of every kernel, its plain version and
    ``torch.sparse.mm`` (cuSPARSE, used here only as a yardstick) beside
    the memory-bandwidth bound (rows 2 and 3 with the table they read);
@@ -35,9 +44,12 @@ Phases, each fatal on failure:
    rows 1 and 1q against their plain versions on every rank's shard;
    one projection and backprojection under each of the five reduction
    modes and the int8 wire against the one-rank path; 30-iteration
-   solves under ``mixed`` (``hier``, ``hier-sparse``) and ``q8`` over
-   the int8 wire, with their launch counts; and one profiled
-   ``hier-sparse`` solve beside phase 4's.
+   solves under ``mixed`` (``hier``, ``sparse``, ``hier-sparse``) and
+   ``q8`` over the int8 wire, with their launch counts and their scatter
+   tables' multiplicities; every solve runs twice, then three times
+   each with ``overlap=False`` and ``overlap=True`` in turns, timed, all
+   required to give the first run's bits; and profiled ``hier-sparse``
+   solves with and without the side stream beside phase 4's.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -75,6 +87,7 @@ MODES = ("direct", "rs", "hier", "sparse", "hier-sparse")
 # phase 6's solves: (key, precision, comm mode, wire)
 MESH_SOLVES = (
     ("p4_hier_mixed", "mixed", "hier", "native"),
+    ("p4_sparse_mixed", "mixed", "sparse", "native"),
     ("p4_hier-sparse_mixed", "mixed", "hier-sparse", "native"),
     ("p4_hier-sparse_q8_wire-q8", "q8", "hier-sparse", "q8"),
 )
@@ -467,8 +480,15 @@ def main_path(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS,
                                  peak_bytes=int(peak), launches=count)
 
     expected = 2 * (iters + 1) * (slices // fuse)
+    solutions = {}
     for precision in ("mixed", "single", "q8", "fp8"):
         rec, x, res, runs[precision] = solve(precision, iters)
+        solutions[precision] = (x, res)
+        if precision == "mixed":
+            runs["scatter_depths"] = rec.scatter_depths()
+            log("scatter tables P=1: " + ", ".join(
+                f"{k} largest multiplicity {m}"
+                for k, (m, _) in runs["scatter_depths"].items()))
         if not (res[-1] < 0.05 * res[0]).all():
             raise AssertionError(f"{precision}: residual did not fall 20x")
         key = "sorted_q" if get_policy(precision).quantized else "sorted"
@@ -545,7 +565,113 @@ def main_path(plan, a, device, slices=SLICES, fuse=FUSE, iters=ITERS,
         del t
     log("apply_operator on unsorted tables (row 2): proj and back == the "
         "class-sorted path, bit for bit")
+
+    # the pipeline's overlap: the reduce phase on a side stream must give
+    # the serial order's bits; the solves above ran with overlap=True
+    for precision in ("mixed", "q8"):
+        recs = [Reconstructor(plan, cfg=ReconConfig(
+            precision=precision, fuse=fuse, overlap=overlap), device=device)
+            for overlap in (False, True)]
+        runs[f"{precision}_overlap"] = overlap_walls(
+            recs, sino, iters, solutions[precision], f"{precision} P=1")
+        del recs
+    runs["batch"] = batch_path(plan, device, sino, solutions["mixed"],
+                               slices, fuse, iters)
+    runs["span"] = span_timing(plan, sino, device, fuse, iters)
     return runs
+
+
+def overlap_walls(recs, sino, iters, want, label, rounds=3):
+    """Solve with each of ``recs`` (overlap off, on) in turns, ``rounds``
+    times; every solution must have ``want``'s bits.  Returns the wall
+    seconds per setting."""
+    import numpy as np
+
+    walls = {"off": [], "on": []}
+    for _ in range(rounds):
+        for rec in recs:
+            t0 = time.perf_counter()
+            x, res = rec.reconstruct(sino, iters=iters)
+            walls["on" if rec.cfg.overlap else "off"].append(
+                time.perf_counter() - t0)
+            if not (np.array_equal(x, want[0])
+                    and np.array_equal(res, want[1])):
+                raise AssertionError(f"{label}: overlap={rec.cfg.overlap} "
+                                     "differs from the first solve")
+    log(f"overlap {label}: {iters}-iteration solves in turns, wall s with "
+        f"the side stream {[round(w, 3) for w in walls['on']]} (median "
+        f"{np.median(walls['on']):.3f}), serial "
+        f"{[round(w, 3) for w in walls['off']]} (median "
+        f"{np.median(walls['off']):.3f}); all bit-equal")
+    return walls
+
+
+def batch_path(plan, device, sino, p1, slices, fuse, iters):
+    """Phase 3: a (2, 1) ("data", "model") mesh of the one card, two batch
+    groups of one rank on the P=1 plan.  With 32 slices and fuse 16 each
+    group computes one of the one-group solve's minibatches, so its
+    projections must equal the one-group ones bit for bit.  The solve's
+    CG dots sum 16 columns per group where the one-group solve's sum 32,
+    in another order, so its difference from the P=1 solve is printed,
+    not required to be 0."""
+    import numpy as np
+
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.data.phantom import phantom_slices
+    from repro_torch.dist import Topology
+    from repro_torch.launch.mesh import make_mesh
+
+    topo = Topology.from_mesh(make_mesh((2, 1), ("data", "model"),
+                                        devices=[device] * 2))
+    cfg = ReconConfig(precision="mixed", fuse=fuse)
+    rec = Reconstructor(plan, cfg=cfg, topology=topo)
+    one = Reconstructor(plan, cfg=cfg, device=device)
+    x_true = phantom_slices(plan.geo.n, slices, seed=0)
+    for fn, inp in (("project", x_true), ("backproject", sino)):
+        if not np.array_equal(getattr(rec, fn)(inp), getattr(one, fn)(inp)):
+            raise AssertionError(f"batch groups: {fn} differs from one group")
+    del one
+    t0 = time.perf_counter()
+    x, res = rec.reconstruct(sino, iters=iters)
+    wall = time.perf_counter() - t0
+    diff = float(np.abs(x - p1[0]).max())
+    rel = np.linalg.norm(x - x_true, axis=0) / np.linalg.norm(x_true, axis=0)
+    log(f"batch (2, 1) mesh, n_batch={rec.n_batch}: project and backproject "
+        f"== one group bit for bit; {iters}-iteration mixed solve in "
+        f"{wall:.2f} s, rel err mean {rel.mean():.4f}, max abs diff from the "
+        f"P=1 solve {diff:.3e} (max |x| {float(np.abs(p1[0]).max()):.3e}; "
+        "the CG dots sum 16 columns, not 32, in another order), residual "
+        f"max abs diff {float(np.abs(res - p1[1]).max()):.3e}")
+    if not (np.isfinite(x).all() and (res[-1] < 0.05 * res[0]).all()):
+        raise AssertionError("batch solve: non-finite or residual did not "
+                             "fall 20x")
+    return dict(wall_s=wall, rel=float(rel.mean()), max_abs_diff=diff)
+
+
+def span_timing(plan, sino, device, fuse, iters):
+    """Phase 3: the ``recon/solve`` span's duration beside a host timer
+    around the same mixed solve."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.obs import trace
+
+    rec = Reconstructor(plan, cfg=ReconConfig(fuse=fuse), device=device)
+    staged = rec.stage_sino(sino)
+    old = trace.get_tracer()
+    tracer = trace.enable()
+    try:
+        t0 = time.perf_counter()
+        rec.reconstruct(staged, iters=iters)
+        wall = time.perf_counter() - t0
+    finally:
+        trace.set_tracer(old)
+    (ev,) = tracer.spans("recon/solve")
+    span_s = ev["t1"] - ev["t0"]
+    log(f"span recon/solve: {span_s:.4f} s (fenced) inside a host timer of "
+        f"{wall:.4f} s around reconstruct (which adds the download and "
+        "unpacking)")
+    if not 0 < span_s <= wall:
+        raise AssertionError("recon/solve span outside the host timer")
+    return dict(span_s=span_s, wall_s=wall)
 
 
 MESH_CFG = dict(n_data=4, socket=2)  # phase 6's PartitionConfig fields
@@ -689,9 +815,10 @@ def mesh_path(plan1, plan4, a, device, runs_p1, slices=SLICES, fuse=FUSE,
     cuda = device.type == "cuda"
     card = topo.rank_devices()[0]
 
-    def bind(precision, mode="direct", wire="native", plan=plan4):
+    def bind(precision, mode="direct", wire="native", plan=plan4,
+             overlap=True):
         cfg = ReconConfig(precision=precision, comm_mode=mode, wire=wire,
-                          fuse=fuse)
+                          fuse=fuse, overlap=overlap)
         if plan is plan1:
             return Reconstructor(plan, cfg=cfg, device=device)
         rec = Reconstructor(plan, cfg=cfg, topology=topo)
@@ -745,8 +872,8 @@ def mesh_path(plan1, plan4, a, device, runs_p1, slices=SLICES, fuse=FUSE,
 
     solves = {}
     expected = 4 * (slices // fuse) * 2 * (iters + 1)
-    for key, precision, mode, wire in MESH_SOLVES:
-        rec = bind(precision, mode, wire)
+
+    def run(rec, key, mode, wire, precision):
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -783,11 +910,30 @@ def mesh_path(plan1, plan4, a, device, runs_p1, slices=SLICES, fuse=FUSE,
         if cuda and count != {kernel: expected}:
             raise AssertionError(f"{key}: launches {count}, expected "
                                  f"{{{kernel!r}: {expected}}}")
-        solves[key] = dict(rel=float(err.mean()), wall_s=wall,
-                           peak_bytes=int(peak), launches=count,
-                           comm_mode=mode, wire=wire, precision=precision,
-                           ranks=4)
-        del rec
+        return x, res, dict(rel=float(err.mean()), wall_s=wall,
+                            peak_bytes=int(peak), launches=count,
+                            comm_mode=mode, wire=wire, precision=precision,
+                            ranks=4, overlap=rec.cfg.overlap)
+
+    for key, precision, mode, wire in MESH_SOLVES:
+        rec = bind(precision, mode, wire)
+        depths = rec.scatter_depths()
+        log(f"scatter tables {key}: " + ", ".join(
+            f"{k} largest multiplicity {m}, passes over 4 ranks {n}"
+            for k, (m, n) in depths.items()))
+        x, res, solves[key] = run(rec, key, mode, wire, precision)
+        solves[key]["scatter_depths"] = depths
+        # a second run must give the first's bits: the ordered
+        # scatter-adds leave nothing to the atomics' order
+        x2, res2, _ = run(rec, key + " again", mode, wire, precision)
+        equal = np.array_equal(x, x2) and np.array_equal(res, res2)
+        log(f"solve {key}: two runs bit-equal: {equal}")
+        if not equal:
+            raise AssertionError(f"{key}: two runs differ")
+        serial = bind(precision, mode, wire, overlap=False)
+        solves[key]["walls"] = overlap_walls(
+            [serial, rec], sino, iters, (x, res), key)
+        del rec, serial
     return checks, solves
 
 
@@ -834,7 +980,9 @@ def profile_solve(plan, a, device, precision="mixed", slices=SLICES,
     cfg = ReconConfig(precision=precision, fuse=fuse, **extra)
     rec = (Reconstructor(plan, cfg=cfg, device=device) if topology is None
            else Reconstructor(plan, cfg=cfg, topology=topology))
-    label = "/".join([precision] + [str(v) for v in extra.values()]) + (
+    label = "/".join([precision] + [
+        f"{k}={v}" if isinstance(v, bool) else str(v)
+        for k, v in extra.items()]) + (
         "" if topology is None else f" P={topology.n_data}")
     staged = rec.stage_sino(simulate_measurements(a, x_true, seed=0))
     rec.reconstruct(staged, iters=1)  # warm-up outside the window
@@ -865,7 +1013,87 @@ def profile_solve(plan, a, device, precision="mixed", slices=SLICES,
             log(f"  {ms:9.2f} ms {calls:6d} calls  {name[:90]}")
     return dict(wall_s=wall, device_s=device_s,
                 busy_share=None if device_s is None else device_s / wall,
-                top=[[n[:90], ms, c] for n, ms, c in events[:rows]])
+                top=[[n[:90], ms, c] for n, ms, c in events[:rows]],
+                streams=stream_breakdown(prof, label))
+
+
+def _union(spans):
+    """Sorted (start, end) intervals -> their union, merged."""
+    out = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def _overlap_us(a, b):
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_breakdown(prof, label):
+    """From the profiler's trace: per CUDA stream the device work's count
+    and ms (kernels, copies, fills); the ms during which an SpMM kernel
+    and device work of another stream ran at once; and the ordered
+    scatter's ``index_add_`` and gather kernels."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    work = [e for e in doc.get("traceEvents", [])
+            if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset")
+            and "stream" in e.get("args", {})]
+    if not work:
+        log(f"streams {label}: no device events with a stream in the trace "
+            "(not measured)")
+        return None
+    spmm = [e for e in work if "xct_spmm" in e["name"]]
+    main = spmm[0]["args"]["stream"] if spmm else None
+    per = {}
+    for e in work:
+        st = per.setdefault(e["args"]["stream"], dict(count=0, ms=0.0))
+        st["count"] += 1
+        st["ms"] += e["dur"] / 1e3
+    spans = {}
+    for e in work:
+        spans.setdefault(e["args"]["stream"] == main, []).append(
+            (e["ts"], e["ts"] + e["dur"]))
+    both_ms = _overlap_us(
+        _union((e["ts"], e["ts"] + e["dur"]) for e in spmm),
+        _union(spans.get(False, [])),
+    ) / 1e3
+    kinds = {"index_add_": ("indexFunc", "index_add"),
+             "gather": ("indexSelect", "index_select", "gather_kernel")}
+    calls = {}
+    for kind, keys in kinds.items():
+        hit = [e for e in work if e.get("cat") == "kernel"
+               and any(k in e["name"] for k in keys)]
+        calls[kind] = dict(count=len(hit),
+                           ms=sum(e["dur"] for e in hit) / 1e3)
+    log(f"streams {label}: " + "; ".join(
+        f"stream {k}{' (SpMM)' if k == main else ''}: {v['count']} device "
+        f"ops, {v['ms']:.2f} ms" for k, v in sorted(per.items()))
+        + f" | SpMM beside another stream's work {both_ms:.2f} ms | "
+        + ", ".join(f"{k} {v['count']} calls {v['ms']:.2f} ms"
+                    for k, v in calls.items()))
+    return dict(per_stream={str(k): v for k, v in per.items()},
+                spmm_stream=main, spmm_beside_other_ms=both_ms, **calls)
 
 
 def cuda_ms(fn, reps, warm=2):
@@ -1163,10 +1391,13 @@ def main():
     phase("phase 4: profiles")
     profiles = {p: profile_solve(plan, a, device, precision=p)
                 for p in ("mixed", "q8")}
-    profiles["p4_hier-sparse_mixed"] = profile_solve(
-        plan4, a, device, precision="mixed", topology=mesh_topology(device),
-        rows=16, comm_mode="hier-sparse",
-    )
+    for key, overlap in (("p4_hier-sparse_mixed", True),
+                         ("p4_hier-sparse_mixed_serial", False)):
+        profiles[key] = profile_solve(
+            plan4, a, device, precision="mixed",
+            topology=mesh_topology(device), rows=16,
+            comm_mode="hier-sparse", overlap=overlap,
+        )
     kernels = []
     for key, name, replaces in KERNELS:
         kernels.append(entry(

@@ -11,10 +11,17 @@ sparse footprint exchange) -> the owned chunks concatenated in rank order
 -> CGNR update.
 
 One process drives every rank, as the reference's ``shard_map`` does
-(``dist.DeviceMesh``).  Rank ``p`` holds shard ``p`` of every operator array
-on its mesh device; the CG vectors stay global on rank 0's device, split
-by rank into row chunks for the kernels.  Without a topology the
-reconstructor has one rank on ``device``.
+(``dist.DeviceMesh``).  The vectors are split as the reference's
+``P(data_axes, batch_axes)``: their columns (slices) contiguously over
+the batch groups, each group a full set of data ranks that runs its own
+CG solve on its columns; within a group rank ``p`` holds shard ``p`` of
+every operator array on its mesh device, and the group's CG vectors stay
+on its rank 0's device, split by rank into row chunks for the kernels.
+Without a topology the reconstructor has one rank on ``device``.
+
+The solve is timed by the ``recon/stage`` and ``recon/solve`` spans of
+``obs.trace``, and ``resil.inject``'s ``recon/solve`` site sees the
+solution before the non-finite check.
 """
 from __future__ import annotations
 
@@ -25,16 +32,22 @@ import numpy as np
 import torch
 
 from ..dist import DeviceMesh, Topology
-from ..dist.collectives import sparse_exchange
+from ..dist.collectives import (
+    ScatterPasses,
+    ordered_index_add,
+    sparse_exchange,
+)
 from ..kernels.ops import (
     apply_operator,
     check_supported,
     sort_segments_by_class,
     winmap_segments,
 )
+from ..obs.trace import span as obs_span
+from ..resil import inject
 from ..resil.errors import NonFiniteSolveError
 from .partition import Plan, build_hier_sparse_exchange, build_sparse_exchange
-from .pipeline import pipelined_apply
+from .pipeline import pipelined_apply, side_streams
 from .precision import (
     adaptive_scale_cols,
     get_policy,
@@ -83,7 +96,7 @@ class ReconConfig:
     comm_mode: str = "hier"  # direct | rs | hier | sparse | hier-sparse
     wire: str = "native"  # hier-sparse slow-axis wire: native | q8
     fuse: int = 16  # paper's minibatch size (FFACTOR)
-    overlap: bool = True  # Fig. 8 pipelining order
+    overlap: bool = True  # Fig. 8 pipelining (side CUDA streams)
     use_ref: bool = False  # oracle instead of the kernel
     staging: str = "fused"  # in-kernel window staging | gather (A/B)
     dma: str = "coalesced"  # run-length segment window staging | per_row
@@ -102,7 +115,8 @@ class Reconstructor:
         topology; raises when CUDA is asked for and absent.
       topology: ``dist.Topology.from_mesh(mesh, data_axes=...,
         batch_axes=...)`` over a ``dist.DeviceMesh``; the data
-        levels' size product must equal ``plan.cfg.n_data``.  Default:
+        levels' size product must equal ``plan.cfg.n_data``, and the
+        batch axes' size product ``n_batch`` splits the slices.  Default:
         one rank on ``device`` (a 1x1 ``("data", "model")`` mesh with
         data axis ``"model"``, as the reference's default).
     """
@@ -139,12 +153,6 @@ class Reconstructor:
                 f"plan has P_d={plan.cfg.n_data} but data axes "
                 f"{topology.data_axes} have size {topology.n_data}"
             )
-        if topology.n_batch != 1:
-            raise NotImplementedError(
-                f"batch axes {topology.batch_axes} of size "
-                f"{topology.n_batch}: only size 1 is ported (ROADMAP.md "
-                "queue 1, batch parallelism n_batch > 1)"
-            )
         fast = topology.levels[0].size if topology.levels else 1
         if plan.cfg.socket not in (1, fast):
             warnings.warn(
@@ -158,12 +166,26 @@ class Reconstructor:
         self.cfg = cfg
         self.topology = topology
         self.mesh = topology.mesh
-        self.devices = topology.rank_devices()
+        self.n_batch = topology.n_batch
+        # the data ranks' devices of each batch group; group 0's rank 0
+        # holds the global vectors
+        self.groups = [topology.rank_devices(b) for b in range(self.n_batch)]
+        self.devices = self.groups[0]
         self.device = self.devices[0]
         self.policy = get_policy(cfg.precision)
         self._rank_rows = None  # lazy inverse row permutation
         self._rank_cols = None
-        self._arrays = self._device_arrays()
+        self._arrays = self._device_arrays(self.devices)
+        # the reduce phase's side CUDA streams, one per distinct device,
+        # shared by the ranks and batch groups on it
+        self._side = (side_streams(d for g in self.groups for d in g)
+                      if cfg.overlap else {})
+        # another group's rank on a device of its own binds its own copy
+        self._other = {
+            (p, d): self._device_arrays([d], [p])[0]
+            for group in self.groups[1:]
+            for p, d in enumerate(group) if d != self.devices[p]
+        }
 
     # ------------------------------------------------------------------ #
     # data movement helpers (host side)
@@ -235,15 +257,18 @@ class Reconstructor:
     # ------------------------------------------------------------------ #
     # device arrays
     # ------------------------------------------------------------------ #
-    def _device_arrays(self) -> list:
+    def _device_arrays(self, devices, ranks_of=None) -> list:
         """One dict per rank: shard ``p`` of every operator array (and of
-        the sparse-exchange tables) on rank ``p``'s device."""
+        the exchange's tables) on ``devices[i]``, for ``p = ranks_of[i]``
+        (default: rank ``i``).  The scatter tables are bound as
+        :class:`~repro_torch.dist.collectives.ScatterPasses`."""
         pol = self.policy
         mode = self.cfg.comm_mode
         topo = self.topology
         fast = topo.levels[0].size if topo.levels else 1
+        ranks_of = list(range(len(devices))) if ranks_of is None else ranks_of
         self._socket_rows: dict = {}  # static W per operator (hier-sparse)
-        ranks = [{} for _ in self.devices]
+        ranks = [{} for _ in devices]
         for name, op in (("proj", self.plan.proj), ("back", self.plan.back)):
             if op.winsegs is not None and op.segoff is not None:
                 segs, off = op.winsegs, op.segoff
@@ -251,14 +276,21 @@ class Reconstructor:
                 segs, off = sort_segments_by_class(
                     winmap_segments(op.winmap), op.winmap.shape[-1]
                 )
-            tables = {}
+            # scatter tables: (table, limit) -- slots at or past the limit
+            # are padding (the reference's trash row or mode="drop")
+            tables, scatters = {}, {
+                "row_map": (op.row_map, op.n_rows_pad)
+            }
             if mode == "sparse":
-                tables["send"], tables["recv"], _ = build_sparse_exchange(op)
+                tables["send"], recv, _ = build_sparse_exchange(op)
+                scatters["recv"] = (recv, op.rows_per_dev)
             elif mode == "hier-sparse":
                 smap, send, recv, w, _ = build_hier_sparse_exchange(op, fast)
                 self._socket_rows[name] = w
-                tables.update(smap=smap, send=send, recv=recv)
-            for p, (arrs, dev) in enumerate(zip(ranks, self.devices)):
+                tables["send"] = send
+                scatters.update(smap=(smap, fast * w),
+                                recv=(recv, op.rows_per_dev))
+            for arrs, dev, p in zip(ranks, devices, ranks_of):
                 def up(a, dev=dev):
                     return self._upload(a, dev)
 
@@ -277,24 +309,49 @@ class Reconstructor:
                 arrs[f"{name}_winmap"] = up(op.winmap[p])
                 arrs[f"{name}_winsegs"] = up(segs[p].astype(np.int32))
                 arrs[f"{name}_segoff"] = up(off[p].astype(np.int32))
-                arrs[f"{name}_row_map"] = up(
-                    op.row_map[p].reshape(-1).astype(np.int64)
-                )
                 for key, table in tables.items():
                     arrs[f"{name}_{key}"] = up(table[p].astype(np.int64))
+                for key, (table, limit) in scatters.items():
+                    sp = ScatterPasses.build(table[p], limit)
+                    arrs[f"{name}_{key}"] = dataclasses.replace(
+                        sp, first=up(sp.first), dst=up(sp.dst),
+                        src=up(sp.src))
         return ranks
+
+    def _group_arrays(self, g: int) -> list:
+        """Batch group ``g``'s per-rank arrays: group 0's wherever its rank
+        shares group 0's device."""
+        return [
+            self._arrays[p] if d == self.devices[p] else self._other[p, d]
+            for p, d in enumerate(self.groups[g])
+        ]
+
+    def scatter_depths(self) -> dict:
+        """``{"<op>_<table>": (largest multiplicity over the ranks, passes
+        summed over the ranks)}`` of the bound scatter tables: the
+        multiplicity is a pass count, each pass one gather and one
+        ``index_add_`` per minibatch and application."""
+        out = {}
+        for key, t in self._arrays[0].items():
+            if isinstance(t, ScatterPasses):
+                depths = [a[key].depth for a in self._arrays]
+                out[key] = (max(depths), sum(depths))
+        return out
 
     # ------------------------------------------------------------------ #
     # per-rank compute
     # ------------------------------------------------------------------ #
-    def _make_ops(self):
-        """Closures (project, backproject, dot_rows) over the ranks'
-        arrays; vectors are global on rank 0's device."""
-        cfg, pol, ranks = self.cfg, self.policy, self._arrays
-        devices, dev0 = self.devices, self.device
+    def _make_ops(self, g: int = 0):
+        """Closures (project, backproject, dot_rows) over batch group
+        ``g``'s ranks; its vectors are global on its rank 0's device."""
+        cfg, pol, ranks = self.cfg, self.policy, self._group_arrays(g)
+        devices = self.groups[g]
+        dev0 = devices[0]
         n_ranks = len(ranks)
         sparse = cfg.comm_mode in _SPARSE_MODES
         hier = cfg.comm_mode == "hier-sparse"
+        streams = [self._side[d] for d in dict.fromkeys(devices)
+                   if d in self._side]
 
         def split(x, rows):
             """Global [n * rows, F] -> per-rank row chunks on their
@@ -310,7 +367,6 @@ class Reconstructor:
 
         def one_operator(prefix, op):
             rows_out, cols = op.rows_per_dev, op.cols_per_dev
-            n_rows_pad = op.n_rows_pad
 
             def kernel(x_f):
                 """The kernel phase: each rank's SpMM on its column
@@ -345,7 +401,7 @@ class Reconstructor:
                         [a[f"{prefix}_recv"] for a in ranks],
                         self.topology,
                         rows_out,
-                        socket_map=(
+                        socket_passes=(
                             [a[f"{prefix}_smap"] for a in ranks]
                             if hier else None
                         ),
@@ -356,16 +412,11 @@ class Reconstructor:
                     )
                 else:
                     # scatter-ADD: split rows (virtual-row packing) may
-                    # map several band slots onto one row; padding slots
-                    # land in the trash row n_rows_pad, cut off below
-                    fulls = [
-                        torch.zeros(
-                            (n_rows_pad + 1, b.shape[-1]), dtype=b.dtype,
-                            device=b.device,
-                        ).index_add_(0, a[f"{prefix}_row_map"], b)
-                        [:n_rows_pad]
-                        for a, b in zip(ranks, bandc)
-                    ]
+                    # map several band slots onto one row, added in the
+                    # reference's order; padding slots are not in the
+                    # passes
+                    fulls = [ordered_index_add(a[f"{prefix}_row_map"], b)
+                             for a, b in zip(ranks, bandc)]
                     chunks = self.comm_plan.reduce_partials(fulls)
                 return gather(chunks).to(torch.float32) * inv[0]
 
@@ -382,7 +433,8 @@ class Reconstructor:
                     x_all = (x_all.to(torch.float32) * s).to(pol.storage)
                     inv = 1.0 / s
                 out = pipelined_apply(
-                    kernel, reduce, x_all, cfg.fuse, overlap=cfg.overlap
+                    kernel, reduce, x_all, cfg.fuse, overlap=cfg.overlap,
+                    streams=streams,
                 )
                 return out if inv is None else out * inv
 
@@ -393,9 +445,10 @@ class Reconstructor:
 
         def dot_rows(u, v):
             # Scalar reductions always in f32: a half-mode dot over 1e6+
-            # entries overflows f16's 65504 range.  The vectors are
-            # global, so this sums every rank's rows (the reference's
-            # local sum + psum, in another order).
+            # entries overflows f16's 65504 range.  The group's vectors
+            # are global, so this sums the rows of its data ranks only
+            # (the reference's local sum + psum over the data axes, in
+            # another order).
             return torch.sum(u.to(torch.float32) * v.to(torch.float32), dim=0)
 
         return project, backproject, dot_rows
@@ -404,18 +457,38 @@ class Reconstructor:
     # public API (natural-order numpy in/out)
     # ------------------------------------------------------------------ #
     def _check_slices(self, y: int):
-        if y % self.cfg.fuse:
+        per = self.n_batch * self.cfg.fuse
+        if y % per:
             raise ValueError(
-                f"slice count {y} must be a multiple of fuse = "
-                f"{self.cfg.fuse}"
+                f"slice count {y} must be a multiple of batch x fuse = {per}"
             )
 
+    def _by_group(self, fn, *vectors):
+        """Run ``fn(g, *columns)`` for every batch group on its columns of
+        ``vectors`` (global on rank 0's device), moved to the group's
+        device; the groups' results join along the columns on rank 0's
+        device.  ``fn`` returns one tensor or a tuple of them."""
+        outs = []
+        for g, group in enumerate(self.groups):
+            cols = [v.tensor_split(self.n_batch, dim=1)[g].to(group[0])
+                    for v in vectors]
+            outs.append(fn(g, *cols))
+        if self.n_batch == 1:
+            return outs[0]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[i].to(self.device) for o in outs], 1)
+                         for i in range(len(outs[0])))
+        return torch.cat([o.to(self.device) for o in outs], dim=1)
+
     def _apply(self, which: str, packed: np.ndarray) -> np.ndarray:
-        proj, back, _ = self._make_ops()
-        op = proj if which == "project" else back
+        def one(g, x):
+            proj, back, _ = self._make_ops(g)
+            op = proj if which == "project" else back
+            return op(x).to(torch.float32)
+
         x = self._upload(packed).to(self.policy.storage)
         with torch.no_grad():
-            out = op(x).to(torch.float32)
+            out = self._by_group(one, x)
         return self._download(out)
 
     def project(self, x_nat):
@@ -438,16 +511,18 @@ class Reconstructor:
         honest.
         """
         self._check_slices(sino_nat.shape[1])
-        y = self.pack_sino(sino_nat)
-        m = np.abs(y).max(axis=0)
-        # target 1.0: keeps every CG vector (and the fp16 CG scalars)
-        # O(n * K) at most, inside half range for any practical geometry
-        scale = np.exp2(
-            np.round(np.log2(1.0 / np.maximum(m, 1e-30)))
-        ).astype(np.float32)
-        y_dev = self._upload(y * scale)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with obs_span("recon/stage", slices=int(sino_nat.shape[1])):
+            y = self.pack_sino(sino_nat)
+            m = np.abs(y).max(axis=0)
+            # target 1.0: keeps every CG vector (and the fp16 CG scalars)
+            # O(n * K) at most, inside half range for any practical
+            # geometry
+            scale = np.exp2(
+                np.round(np.log2(1.0 / np.maximum(m, 1e-30)))
+            ).astype(np.float32)
+            y_dev = self._upload(y * scale)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         return StagedSlab(
             y=y_dev, scale=scale, n_slices=int(sino_nat.shape[1])
         )
@@ -460,7 +535,8 @@ class Reconstructor:
         exactly.  ``sino_nat`` may be a pre-staged :class:`StagedSlab`.
 
         Raises :class:`~repro_torch.resil.errors.NonFiniteSolveError` when
-        the solution contains NaN/Inf.
+        the solution contains NaN/Inf (a blown-up narrow-precision solve,
+        or a ``nonfinite`` fault injected at ``recon/solve``).
         """
         staged = (
             sino_nat
@@ -474,15 +550,28 @@ class Reconstructor:
             else np.zeros((self.tomo_pad, staged.n_slices), np.float32)
         )
         pol = self.policy
-        proj, back, dot = self._make_ops()
-        with torch.no_grad():
+
+        def solve(g, y, x0):
+            proj, back, dot = self._make_ops(g)
             x, res = cgnr(
-                proj, back, staged.y, self._upload(x0), iters, dot,
+                proj, back, y, x0, iters, dot,
                 compute_dtype=pol.compute, storage_dtype=pol.storage,
             )
-            x = x.to(torch.float32)
-            res = res.to(torch.float32)
+            return x.to(torch.float32), res.to(torch.float32)
+
+        with obs_span(
+            "recon/solve", iters=iters, slices=staged.n_slices
+        ) as sp:
+            with torch.no_grad():
+                x, res = self._by_group(solve, staged.y, self._upload(x0))
+            sp.fence((x, res))  # the span ends when the device is done
         x_nat = self.unpack_tomo(self._download(x)) / scale
+        # the resilience guard: a blown-up solve (or an injected
+        # nonfinite fault) surfaces as a typed error the caller can
+        # retry or escalate, never as NaNs in the volume
+        x_nat = inject.mutate(
+            "recon/solve", x_nat, ctx={"precision": self.cfg.precision}
+        )
         if not np.isfinite(x_nat).all():
             n_bad = int(x_nat.size - np.isfinite(x_nat).sum())
             raise NonFiniteSolveError(

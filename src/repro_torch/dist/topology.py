@@ -262,19 +262,30 @@ class Topology:
         ranks = np.arange(self.n_data).reshape(sizes).transpose(off + on)
         return ranks.reshape(-1, math.prod(sizes[i] for i in on)).tolist()
 
-    def rank_devices(self) -> list:
-        """``torch.device`` of each rank, in rank order: the mesh device
-        at the rank's data coordinates, index 0 on every other axis."""
+    def rank_devices(self, batch: int = 0) -> list:
+        """``torch.device`` of each data rank of batch group ``batch``, in
+        rank order: the mesh device at the rank's data coordinates and the
+        group's batch coordinates (``batch`` linearizes them over
+        ``batch_axes``, first axis major, as ``axis_index`` does), index
+        0 on every other axis."""
         if self.mesh is None:
             raise ValueError(
                 "rank devices need a mesh-bound topology "
                 "(Topology.from_mesh)"
             )
+        if not 0 <= batch < self.n_batch:
+            raise ValueError(
+                f"batch group {batch} of {self.n_batch} "
+                f"(batch axes {self.batch_axes})"
+            )
         names = self.mesh.axis_names
         sizes = [lv.size for lv in self.levels]
+        bsizes = [self.mesh.shape[a] for a in self.batch_axes]
+        group = dict(zip(self.batch_axes, np.unravel_index(batch, bsizes)))
         out = []
         for p in range(self.n_data):
-            coords = dict(zip(self.data_axes, np.unravel_index(p, sizes)))
+            coords = dict(group)
+            coords.update(zip(self.data_axes, np.unravel_index(p, sizes)))
             idx = tuple(int(coords.get(a, 0)) for a in names)
             out.append(self.mesh.devices[idx])
         return out

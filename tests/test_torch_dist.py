@@ -11,7 +11,11 @@
     ``DeviceMesh`` against the JAX ``Reconstructor`` on a forced 4-device
     mesh (one subprocess: the device count must be set before JAX
     initializes), for the five modes under ``single`` and ``mixed``, the
-    int8 wire, and 8-iteration ``mixed`` solves;
+    int8 wire, and 8-iteration ``mixed`` solves; against the JAX kernel
+    path (Pallas in interpret mode) bit for bit under ``mixed``, every
+    mode; and with two batch groups of two data ranks each;
+  * the ordered scatter-add: ``ordered_index_add`` equals a sequential
+    loop and the reference's ``.at[].add``, bit for bit;
   * rank order: a port output chunk moved to another rank fails the same
     comparison, once per piece of code that owns the order.
 """
@@ -21,6 +25,7 @@ import os
 import subprocess
 import sys
 import types
+import zlib
 
 import numpy as np
 import pytest
@@ -135,6 +140,24 @@ def test_rank_order_and_groups():
         topo.groups(("pod",))
 
 
+def test_rank_devices_per_batch_group():
+    """Batch group ``b`` takes the mesh devices at its batch coordinates
+    (first batch axis major), the data ranks in rank order."""
+    devs = np.empty((2, 3, 2), dtype=object)
+    for i, idx in enumerate(np.ndindex(devs.shape)):
+        devs[idx] = torch.device("cpu", i)
+    mesh = ttopo.DeviceMesh(devs, ("pod", "data", "model"))
+    topo = ttopo.Topology.from_mesh(mesh, data_axes=("model",),
+                                    batch_axes=("pod", "data"))
+    assert topo.n_batch == 6 and topo.n_data == 2
+    for b in range(6):
+        pod, data = divmod(b, 3)
+        assert topo.rank_devices(b) == [devs[pod, data, m] for m in (0, 1)]
+    assert topo.rank_devices() == topo.rank_devices(0)
+    with pytest.raises(ValueError, match="batch group 6 of 6"):
+        topo.rank_devices(6)
+
+
 def test_make_mesh_never_moves_to_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="none is available"):
@@ -237,6 +260,25 @@ for mode in ("hier", "hier-sparse"):
     xr, res = rec.reconstruct(sino, iters=8)
     out["reconstruct:" + mode] = np.asarray(xr)
     out["resnorms:" + mode] = np.asarray(res)
+# the kernel path (Pallas in interpret mode), whose f16 bits the port's
+# kernel and ordered scatter-adds reproduce
+for mode in ("direct", "rs", "hier", "sparse", "hier-sparse"):
+    rec = Reconstructor(plan, topology=topo, cfg=ReconConfig(
+        precision="mixed", comm_mode=mode, fuse=2))
+    out["kernel:project:" + mode] = np.asarray(rec.project(x))
+    out["kernel:backproject:" + mode] = np.asarray(rec.backproject(y))
+# two batch groups ("data") of two data ranks ("model")
+plan2 = build_plan(geo, PartitionConfig(n_data=2, tile=4,
+                   rows_per_block=16, nnz_per_stage=16), a=A)
+topo2 = Topology.from_mesh(mesh, data_axes=("model",), batch_axes=("data",))
+rec = Reconstructor(plan2, topology=topo2, cfg=ReconConfig(
+    precision="mixed", comm_mode="hier", fuse=2, use_ref=True))
+assert rec.n_batch == 2
+out["batch:project"] = np.asarray(rec.project(x))
+out["batch:backproject"] = np.asarray(rec.backproject(y))
+xr, res = rec.reconstruct(sino, iters=8)
+out["batch:reconstruct"] = np.asarray(xr)
+out["batch:resnorms"] = np.asarray(res)
 np.savez(sys.argv[1], **out)
 print("OK")
 """
@@ -329,6 +371,94 @@ def test_mesh_reconstruct_matches_jax(jax_mesh_outputs, port_mesh, mode):
     assert (res[-1] < res[0]).all()
 
 
+@pytest.mark.parametrize("mode", FIVE)
+def test_mesh_matches_jax_kernel_path_bit_for_bit(jax_mesh_outputs,
+                                                  port_mesh, mode):
+    """Mixed project and backproject at P=4 equal the JAX kernel path's
+    bits under every mode: the kernel's f16 steps and the ordered
+    scatter-adds round where XLA's do (``sparse`` once differed by
+    6.1e-4 / 5.4e-4 of max|.|, its scatter summing in f32)."""
+    d = jax_mesh_outputs
+    rec = _port_rec(port_mesh, f"{mode}/mixed/native")
+    for fn, inp in (("project", d["x"]), ("backproject", d["y"])):
+        np.testing.assert_array_equal(getattr(rec, fn)(inp),
+                                      d[f"kernel:{fn}:{mode}"])
+
+
+def test_batch_groups_match_jax(jax_mesh_outputs, port_mesh):
+    """Two batch groups of two data ranks (a 2x2 mesh, data axis "model",
+    batch axis "data") against the JAX ``Reconstructor`` on the same
+    mesh: one projection and backprojection and an 8-iteration mixed
+    solve, at the mixed tolerance 5e-3."""
+    d = jax_mesh_outputs
+    plan4, _ = port_mesh
+    plan = tpart.build_plan(plan4.geo, dataclasses.replace(plan4.cfg,
+                                                           n_data=2))
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    topo = ttopo.Topology.from_mesh(mesh, data_axes=("model",),
+                                    batch_axes=("data",))
+    rec = trecon.Reconstructor(
+        plan, trecon.ReconConfig(precision="mixed", comm_mode="hier",
+                                 fuse=2), topology=topo)
+    assert rec.n_batch == 2 and topo.n_data == 2
+    for fn, inp in (("project", d["x"]), ("backproject", d["y"])):
+        assert _rel(getattr(rec, fn)(inp), d[f"batch:{fn}"]) < 5e-3, fn
+    x, res = rec.reconstruct(d["sino"], iters=8)
+    jx, jres = d["batch:reconstruct"], d["batch:resnorms"]
+    np.testing.assert_allclose(x, jx, rtol=5e-3, atol=5e-3 * np.abs(jx).max())
+    np.testing.assert_allclose(res, jres, rtol=5e-3,
+                               atol=5e-3 * np.abs(jres).max())
+    with pytest.raises(ValueError, match="batch x fuse = 4"):
+        rec.project(d["x"][:, :2])
+
+
+def _sequential_add(n_rows, index, src, limit):
+    """The reference's semantics spelled out: one update at a time, in
+    index order, each rounded to the operand's dtype."""
+    out = np.zeros((n_rows, src.shape[1]), src.dtype)
+    for i, d in enumerate(index):
+        if 0 <= d < limit:
+            out[d] = (out[d] + src[i]).astype(src.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.float32])
+@pytest.mark.parametrize("table", ["repeats", "padding", "all-one-row",
+                                   "empty"])
+def test_ordered_index_add_matches_sequential_and_xla(table, dtype):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(zlib.crc32(repr((table, dtype)).encode()))
+    rows, slots, f = 24, 200, 5
+    index = rng.integers(0, rows, size=slots)
+    if table == "padding":
+        index[rng.random(slots) < 0.3] = rows  # the trash row
+    elif table == "all-one-row":
+        index[:] = 7
+    elif table == "empty":
+        index[:] = rows
+    src = (rng.standard_normal((slots, f))
+           * np.exp2(rng.integers(-4, 6, size=(slots, 1)))).astype(dtype)
+    passes = tcoll.ScatterPasses.build(index, rows)
+    counts = np.bincount(index[index < rows], minlength=rows)
+    assert passes.depth == counts.max()
+    # no row twice in a pass; every slot of pass 0 on a row or a trash
+    # row of its own
+    first = passes.first.numpy()
+    assert len(set(first.tolist())) == slots
+    assert (first < rows).sum() == (counts > 0).sum()
+    assert passes.trash == slots - (counts > 0).sum()
+    b = passes.bounds
+    for lo, hi in zip(b[:-1], b[1:]):
+        assert len(set(passes.dst[lo:hi].tolist())) == hi - lo > 0
+    got = tcoll.ordered_index_add(passes, torch.from_numpy(src)).numpy()
+    want = _sequential_add(rows, index, src, rows)
+    xla = np.asarray(jnp.zeros((rows, f), dtype).at[index].add(
+        src, mode="drop"))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, xla)
+
+
 def _swap_ranks(chunks):
     """Ranks 1 and 2 trade places: (fast 0, slow 1) <-> (fast 1, slow 0)."""
     chunks = list(chunks)
@@ -379,7 +509,7 @@ def test_a_chunk_on_the_wrong_rank_fails(jax_mesh_outputs, port_mesh,
     assert not _rel(rec.project(d["x"]), ref) < _tol(key)
 
 
-def test_reconstructor_checks_match_reference(port_mesh):
+def test_reconstructor_checks_match_reference(jax_mesh_outputs, port_mesh):
     plan, topo = port_mesh
     cfg = trecon.ReconConfig(comm_mode="hier", fuse=2)
     small = tmesh.make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
@@ -394,11 +524,21 @@ def test_reconstructor_checks_match_reference(port_mesh):
             [("model", 2), ("data", 2)]))
     with pytest.raises(ValueError, match="not both"):
         trecon.Reconstructor(plan, cfg, "cpu", topology=topo)
+    # batch axes of size > 1 solve: two groups of the four data ranks
+    # give the one group's bits (the same minibatches), and so the
+    # reference's projections at the mixed tolerance
     batched = tmesh.make_mesh((2, 4), ("data", "model"),
                               devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trecon.Reconstructor(plan, cfg, topology=ttopo.Topology.from_mesh(
-            batched))
+    brec = trecon.Reconstructor(plan, cfg, topology=ttopo.Topology.from_mesh(
+        batched))
+    one = trecon.Reconstructor(plan, cfg, topology=ttopo.Topology.from_mesh(
+        tmesh.make_mesh((1, 4), ("data", "model"), devices=["cpu"] * 4)))
+    assert brec.n_batch == 2 and len(brec.groups) == 2
+    d = jax_mesh_outputs
+    for fn, inp in (("project", d["x"]), ("backproject", d["y"])):
+        got = getattr(brec, fn)(inp)
+        np.testing.assert_array_equal(got, getattr(one, fn)(inp))
+        assert _rel(got, d[f"{fn}:hier/mixed/native"]) < 5e-3, fn
     socket2 = tpart.build_plan(
         plan.geo, dataclasses.replace(plan.cfg, socket=2))
     one_level = tmesh.make_mesh((1, 4), ("data", "model"),

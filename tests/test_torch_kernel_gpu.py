@@ -516,3 +516,135 @@ def test_cuda_one_card_mesh_matches_cpu(cuda, mode, precision, wire,
         assert seen and set(seen) == {card}
         ref = getattr(rc, fn)(inp)
         assert np.abs(got - ref).max() < tol * np.abs(ref).max(), fn
+
+
+def _small_plan():
+    """n=32 plan on one rank, with its operator and phantom sinogram."""
+    if "one" not in _MESH_PLAN:
+        from repro_torch.core.geometry import XCTGeometry, build_system_matrix
+        from repro_torch.core.partition import PartitionConfig, build_plan
+        from repro_torch.data.phantom import phantom_slices
+
+        geo = XCTGeometry(n=32, n_angles=48)
+        a = build_system_matrix(geo)
+        _MESH_PLAN["one"] = build_plan(geo, PartitionConfig(
+            tile=4, rows_per_block=16, nnz_per_stage=16), a=a)
+        _MESH_PLAN["sino"] = (a @ phantom_slices(32, 8)).astype(np.float32)
+    return _MESH_PLAN["one"], _MESH_PLAN["sino"]
+
+
+def _mesh_topology(dev):
+    from repro_torch.dist import Topology
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    return Topology.from_mesh(mesh, data_axes=("model", "data"),
+                              batch_axes=())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "ranks,mode,precision,wire",
+    [(1, "rs", "mixed", "native"), (1, "rs", "q8", "native"),
+     (4, "hier", "mixed", "native"), (4, "sparse", "mixed", "native"),
+     (4, "hier-sparse", "mixed", "native"), (4, "hier-sparse", "q8", "q8")],
+)
+def test_cuda_overlap_gives_the_serial_bits(cuda, ranks, mode, precision,
+                                            wire):
+    """The reduce phase on a side stream beside the next minibatch's
+    kernel gives the serial order's bits, on one rank and on four ranks
+    of one card (whose side stream they share)."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+
+    if ranks == 1:
+        plan, sino = _small_plan()
+    else:
+        plan, a = _mesh_plan()
+        _, sino = _small_plan()
+    outs = []
+    for overlap in (False, True):
+        cfg = ReconConfig(precision=precision, comm_mode=mode, wire=wire,
+                          fuse=2, overlap=overlap)
+        rec = (Reconstructor(plan, cfg) if ranks == 1 else
+               Reconstructor(plan, cfg, topology=_mesh_topology(cuda)))
+        assert len(rec._side) == (1 if overlap else 0)
+        outs.append(rec.reconstruct(sino, iters=5))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sparse", "hier-sparse"])
+def test_cuda_sparse_exchange_is_reproducible(cuda, mode):
+    """Two P=4 solves give the same bits: every scatter-add pass writes
+    each row once, so no two f16 atomics meet."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+
+    plan, _ = _mesh_plan()
+    _, sino = _small_plan()
+    rec = Reconstructor(plan, ReconConfig(comm_mode=mode, fuse=2),
+                        topology=_mesh_topology(cuda))
+    first, again = (rec.reconstruct(sino, iters=5) for _ in range(2))
+    np.testing.assert_array_equal(first[0], again[0])
+    np.testing.assert_array_equal(first[1], again[1])
+
+
+@pytest.mark.gpu
+def test_cuda_batch_groups_on_one_card(cuda):
+    """A (2, 1) mesh of one card: two batch groups of one rank, each on
+    its half of the slices, give the one-group projections bit for bit."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.dist import Topology
+    from repro_torch.launch.mesh import make_mesh
+
+    plan, sino = _small_plan()
+    topo = Topology.from_mesh(make_mesh((2, 1), ("data", "model"),
+                                        devices=[cuda] * 2))
+    rec = Reconstructor(plan, ReconConfig(fuse=2), topology=topo)
+    one = Reconstructor(plan, ReconConfig(fuse=2))
+    assert rec.n_batch == 2
+    np.testing.assert_array_equal(rec.backproject(sino),
+                                  one.backproject(sino))
+    x, res = rec.reconstruct(sino, iters=5)
+    assert np.isfinite(x).all() and (res[-1] < res[0]).all()
+
+
+@pytest.mark.gpu
+def test_cuda_span_fence_waits_for_the_side_streams(cuda, monkeypatch):
+    """The ``recon/solve`` span ends after the device work it wraps: its
+    duration is at least the CUDA-event time from before the solve to
+    events queued, when the host reaches the fence, on the caller's
+    stream and on the side stream (the reductions included)."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.obs import trace as ttrace
+
+    plan, a = _mesh_plan()
+    _, sino = _small_plan()
+    rec = Reconstructor(plan, ReconConfig(comm_mode="hier-sparse", fuse=2),
+                        topology=_mesh_topology(cuda))
+    staged = rec.stage_sino(sino)
+    rec.reconstruct(staged, iters=2)  # warm-up
+    (side,) = rec._side.values()
+    ends = []
+    fence = ttrace.Span.fence
+
+    def fence_after_events(self, value):
+        for stream in (torch.cuda.current_stream(), side):
+            ends.append(stream.record_event(
+                torch.cuda.Event(enable_timing=True)))
+        return fence(self, value)
+
+    monkeypatch.setattr(ttrace.Span, "fence", fence_after_events)
+    old = ttrace.get_tracer()
+    tracer = ttrace.enable()
+    try:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rec.reconstruct(staged, iters=10)
+    finally:
+        ttrace.set_tracer(old)
+    (span,) = tracer.spans("recon/solve")
+    device_ms = max(start.elapsed_time(e) for e in ends)
+    assert device_ms > 0
+    assert (span["t1"] - span["t0"]) * 1e3 >= 0.98 * device_ms

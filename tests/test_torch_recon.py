@@ -185,11 +185,11 @@ def test_nonfinite_solve_raises(phantom32, port_plan):
 
 
 def test_unported_configurations_raise(small_system, phantom32, port_plan):
-    """What the port still lacks raises, naming ROADMAP.md; the sparse
-    modes, the int8 wire, ``n_data > 1`` over a mesh and the staging, dma
-    and quantized configurations that once raised now solve, and the
-    reference's checks raise its ``ValueError``."""
-    geo, a, _ = small_system
+    """The sparse modes, the int8 wire, ``n_data > 1`` over a mesh, batch
+    axes of size > 1 and the staging, dma and quantized configurations
+    that once raised now solve, and the reference's checks raise its
+    ``ValueError``."""
+    geo, a, plan = small_system
     x_true, y = phantom32
 
     def solves(rec):
@@ -230,12 +230,29 @@ def test_unported_configurations_raise(small_system, phantom32, port_plan):
     # a topology of the wrong size for the plan
     with pytest.raises(ValueError, match="P_d=1"):
         Reconstructor(port_plan, ReconConfig(fuse=2), topology=two)
-    # slice batches over a batch axis are not ported
+    # slice batches over a batch axis: each group of one rank takes two
+    # slices, as the reference's batch shards do.  Its operators are the
+    # unbatched minibatch's, bit for bit; its CG dots sum 2 columns where
+    # the unbatched solve's sum 4, in another order, so the solve is held
+    # to the reference's at the mixed tolerance
     batched = Topology.from_mesh(
         make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2)
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Reconstructor(port_plan, ReconConfig(fuse=2), topology=batched)
+    brec = Reconstructor(port_plan, ReconConfig(fuse=2), topology=batched)
+    assert brec.n_batch == 2 and len(brec.groups) == 2
+    one = _rec(port_plan, comm_mode="hier")
+    for fn, inp in (("project", x_true), ("backproject", y)):
+        np.testing.assert_array_equal(getattr(brec, fn)(inp),
+                                      getattr(one, fn)(inp))
+    xb, rb = brec.reconstruct(y, iters=8)
+    jx, jres = JaxReconstructor(
+        plan, cfg=JaxConfig(comm_mode="hier", fuse=2)).reconstruct(y, iters=8)
+    np.testing.assert_allclose(xb, np.asarray(jx), rtol=5e-3,
+                               atol=5e-3 * np.abs(np.asarray(jx)).max())
+    np.testing.assert_allclose(rb, np.asarray(jres), rtol=5e-3,
+                               atol=5e-3 * np.abs(np.asarray(jres)).max())
+    with pytest.raises(ValueError, match="batch x fuse = 4"):
+        brec.project(np.zeros((geo.n_vox, 2), np.float32))
     for mode in ("direct", "rs", "hier", "sparse", "hier-sparse"):
         assert _rec(port_plan, comm_mode=mode).cfg.comm_mode == mode
     with pytest.raises(ValueError, match="multiple"):
@@ -272,7 +289,9 @@ def test_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize(
-    "argv", [["--stream"], ["--trace", "t.json"], ["--tune-dir", "d"]],
+    # --trace is ported; traced with an option that is not, the run stops
+    "argv", [["--stream"], ["--trace", "t.json", "--stream"],
+             ["--tune-dir", "d"]],
 )
 def test_cli_rejects_unported_options(argv, capsys):
     from repro_torch.launch import recon as cli

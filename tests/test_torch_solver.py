@@ -7,7 +7,7 @@ import torch
 
 from repro.core.pipeline import pipelined_apply as jax_pipelined
 from repro.core.solver import cgnr as jax_cgnr
-from repro_torch.core.pipeline import pipelined_apply
+from repro_torch.core.pipeline import pipelined_apply, side_streams
 from repro_torch.core.solver import cgnr
 
 
@@ -161,3 +161,10 @@ def test_pipelined_overlap_equals_sync():
     assert torch.equal(sync, over)
     with pytest.raises(ValueError, match="fuse"):
         pipelined_apply(kernel, reduce, x, 3)
+
+
+def test_side_streams_only_for_cuda_devices():
+    """The CPU gets no side stream, so ``overlap=True`` there keeps the
+    issue order above on the current stream."""
+    assert side_streams(["cpu", torch.device("cpu")]) == {}
+    assert side_streams([]) == {}
