@@ -22,9 +22,9 @@ Phases, each fatal on failure:
    and q8 solves with ``overlap=False`` and ``overlap=True`` (the side
    stream) in turns, three each, timed and all required to give the
    first solve's bits; a (2, 1) ``("data", "model")`` mesh of
-   the card, two batch groups on the same plan, whose projections must
-   equal one group's bit for bit and whose solve's difference from the
-   P=1 solve is printed; the ``recon/solve`` span beside a host timer;
+   the card, two batch groups on the same plan, whose projections and
+   solve must equal one group's bit for bit (the CG dots sum in f64);
+   the ``recon/solve`` span beside a host timer;
    with every kernel's launch count read around the phase;
 4. profiled mixed and q8 solves: device time by kernel and the idle
    share (run after phase 5: a profiler session slows later launches);
@@ -49,7 +49,21 @@ Phases, each fatal on failure:
    tables' multiplicities; every solve runs twice, then three times
    each with ``overlap=False`` and ``overlap=True`` in turns, timed, all
    required to give the first run's bits; and profiled ``hier-sparse``
-   solves with and without the side stream beside phase 4's.
+   solves with and without the side stream beside phase 4's;
+7. out-of-core streaming of the main path's plan: 64 slices simulated
+   into an on-disk slab store in 16-slice writer slabs, drained by
+   ``reconstruct_streaming`` under a byte budget that ``suggest_slab``
+   sizes to 16-slice slabs (``mixed``, 30 iterations, the next slab
+   loaded and uploaded in the prefetch thread while one solves); every
+   slab must equal ``Reconstructor.reconstruct`` of the same 16 slices
+   bit for bit, the drain must give the same volume with the upload on
+   the critical path and with prefetch off, after a preemption and
+   resume from the checkpoint, and with one transient read error
+   absorbed by one retry; the peak device memory beside the budget model
+   and the per-slab load, upload and solve times are printed.
+
+At f32/f32 row 1 must equal its plain version bit for bit (phase 2):
+both round the step once, as one fused multiply-add.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -198,6 +212,11 @@ def check_sweep(device):
                 "row4": xs.spmm_block_ell_staged_plain(inds, vals, window,
                                                        **kw),
             }
+            if (storage, compute) == (torch.float32, torch.float32) and \
+                    not torch.equal(outs["row1"], plain):
+                raise AssertionError(
+                    f"row 1 f32/f32 is not its plain version bit for bit "
+                    f"on {shape}: the step must round once")
             for key, out in outs.items():
                 err, ok, tol = compare(out, plains[key], storage)
                 if not ok:
@@ -215,7 +234,10 @@ def check_sweep(device):
         log(f"sweep {pair_name(storage, compute)}: max abs err vs plain "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f" (tolerance {tol:g}, {len(SWEEP)} shapes); rows 2-4 == "
-            "row 1 bit for bit")
+            "row 1 bit for bit"
+            + ("; row 1 == plain bit for bit"
+               if (storage, compute) == (torch.float32, torch.float32)
+               else ""))
         for key, err in errs.items():
             worst[key] = max(worst[key], err)
     for qdtype in xs.QUANT_DTYPES:
@@ -337,6 +359,13 @@ def check_shards(plan, device):
                     f"kernel disagrees with its plain version on the {name} "
                     f"shard at {pair_name(storage, compute)}"
                 )
+            if (storage, compute) == (torch.float32, torch.float32):
+                if not torch.equal(out, plain):
+                    raise AssertionError(
+                        f"row 1 f32/f32 is not its plain version bit for "
+                        f"bit on the {name} shard")
+                log(f"shard {name} f32/f32: row 1 == its plain version, bit "
+                    "for bit (the step rounds once)")
             others = {"row2": apply(winsegs=unsorted),
                       "row3": apply(dma="per_row"),
                       "row4": apply(staging="gather")}
@@ -610,10 +639,8 @@ def batch_path(plan, device, sino, p1, slices, fuse, iters):
     """Phase 3: a (2, 1) ("data", "model") mesh of the one card, two batch
     groups of one rank on the P=1 plan.  With 32 slices and fuse 16 each
     group computes one of the one-group solve's minibatches, so its
-    projections must equal the one-group ones bit for bit.  The solve's
-    CG dots sum 16 columns per group where the one-group solve's sum 32,
-    in another order, so its difference from the P=1 solve is printed,
-    not required to be 0."""
+    projections must equal the one-group ones bit for bit, and so must
+    its solve: the CG dots sum in f64, whatever the column count."""
     import numpy as np
 
     from repro_torch.core.recon import ReconConfig, Reconstructor
@@ -639,12 +666,15 @@ def batch_path(plan, device, sino, p1, slices, fuse, iters):
     log(f"batch (2, 1) mesh, n_batch={rec.n_batch}: project and backproject "
         f"== one group bit for bit; {iters}-iteration mixed solve in "
         f"{wall:.2f} s, rel err mean {rel.mean():.4f}, max abs diff from the "
-        f"P=1 solve {diff:.3e} (max |x| {float(np.abs(p1[0]).max()):.3e}; "
-        "the CG dots sum 16 columns, not 32, in another order), residual "
-        f"max abs diff {float(np.abs(res - p1[1]).max()):.3e}")
+        f"P=1 solve {diff:.3e} (max |x| {float(np.abs(p1[0]).max()):.3e}), "
+        f"residual max abs diff {float(np.abs(res - p1[1]).max()):.3e}")
     if not (np.isfinite(x).all() and (res[-1] < 0.05 * res[0]).all()):
         raise AssertionError("batch solve: non-finite or residual did not "
                              "fall 20x")
+    # the CG dots sum in f64, so summing 16 columns per group where the
+    # one-group solve sums 32 leaves the bits alone
+    if not (np.array_equal(x, p1[0]) and np.array_equal(res, p1[1])):
+        raise AssertionError("batch solve differs from the P=1 solve")
     return dict(wall_s=wall, rel=float(rel.mean()), max_abs_diff=diff)
 
 
@@ -672,6 +702,183 @@ def span_timing(plan, sino, device, fuse, iters):
     if not 0 < span_s <= wall:
         raise AssertionError("recon/solve span outside the host timer")
     return dict(span_s=span_s, wall_s=wall)
+
+
+STREAM_SLICES, WRITER_SLAB = 64, 16  # phase 7's volume and store shards
+
+
+def stream_path(plan, a, device, slices=STREAM_SLICES, fuse=FUSE,
+                iters=ITERS, writer_slab=WRITER_SLAB):
+    """Phase 7: the main path's plan streamed slab by slab from disk.
+    Returns the phase's record; the caller reads the launch counts
+    around it."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.data.phantom import phantom_slices
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.resil import (
+        FaultPlan,
+        InjectedPreemption,
+        RetryPolicy,
+        inject,
+    )
+    from repro_torch.stream import (
+        SlabStore,
+        reconstruct_streaming,
+        simulate_to_store,
+        suggest_slab,
+    )
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    n = plan.geo.n
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rec = Reconstructor(plan, cfg=ReconConfig(precision="mixed", fuse=fuse),
+                        device=device)
+    bind_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    model = suggest_slab(plan, rec.cfg, rec.topology, 1 << 50)
+    # room for 1.25 slabs of fuse slices: suggest_slab rounds down to one
+    room = fuse + fuse // 4
+    budget = model.fixed_bytes + room * model.per_slice_bytes
+    sp = suggest_slab(plan, rec.cfg, rec.topology, budget, n_slices=slices)
+    log(f"stream plan: budget {budget} B = fixed {sp.fixed_bytes} + {room} x "
+        f"per-slice {sp.per_slice_bytes} -> y_slab {sp.y_slab}, slab_bytes "
+        f"{sp.slab_bytes}, smem_bytes {sp.smem_bytes} per SM, modeled "
+        f"traffic {sp.slab_hbm_bytes / 1e9:.3f} GB and "
+        f"{sp.slab_flops / 1e9:.3f} GFLOP per slab iteration")
+    if sp.y_slab != fuse:
+        raise AssertionError(f"suggest_slab gave y_slab {sp.y_slab}, not "
+                             f"{fuse}")
+    out = dict(budget=budget, y_slab=sp.y_slab, slab_bytes=sp.slab_bytes,
+               fixed_bytes=sp.fixed_bytes, per_slice_bytes=sp.per_slice_bytes,
+               smem_bytes=sp.smem_bytes, bind_peak_bytes=int(bind_peak))
+    quick = RetryPolicy(max_attempts=3, base_delay_s=0.0, jitter=0.0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        store = SlabStore.create(os.path.join(tmp, "sino"), plan.geo.n_rays,
+                                 slices, writer_slab)
+        t0 = time.perf_counter()
+        simulate_to_store(a, n, store, seed=0)
+        out["simulate_s"] = time.perf_counter() - t0
+        mem = {}
+        for j0, j1 in store.slabs():
+            mem[j0] = rec.reconstruct(store.read(j0, j1), iters=iters)
+
+        def drain(tag, **kw):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = reconstruct_streaming(rec, store, os.path.join(tmp, tag),
+                                        iters=iters, mem_budget=budget, **kw)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            if res.failed_slabs or not res.complete:
+                raise AssertionError(f"stream {tag}: quarantined "
+                                     f"{res.failed_slabs}, complete "
+                                     f"{res.complete}")
+            return res, wall, peak
+
+        old = obs_trace.get_tracer()
+        tracer = obs_trace.enable()
+        try:
+            res, wall, peak = drain("overlap")
+        finally:
+            obs_trace.set_tracer(old)
+        # where the drain's wall goes, by span (the load and stage spans
+        # run on the prefetch thread, beside the others)
+        spans = {name: tracer.total_s(name) for name in (
+            "stream/slab", "stream/solve", "stream/write", "stream/load",
+            "stream/stage", "recon/solve")}
+        for j0, j1 in res.volume.slabs():
+            x, r = mem[j0]
+            if not (np.array_equal(res.volume.read(j0, j1), x)
+                    and np.array_equal(res.resnorms[:, j0:j1], r)):
+                raise AssertionError(f"streamed slab [{j0}, {j1}) differs "
+                                     "from the in-memory solve")
+        volume = res.volume.to_array()
+        x_true = phantom_slices(n, slices, seed=0)
+        rel = np.linalg.norm(volume - x_true, axis=0) / np.linalg.norm(
+            x_true, axis=0)
+        solve_sum = float(np.sum(res.solve_s))
+        out.update(
+            slabs=len(res.solved), wall_s=wall, load_s=res.load_s,
+            upload_s=res.upload_s, solve_s=res.solve_s, slab_s=res.slab_s,
+            solve_sum_s=solve_sum, slices_per_s=slices / wall,
+            peak_bytes=int(peak), rel=float(rel.mean()), spans_s=spans,
+        )
+        log(f"stream overlap: {len(res.solved)} slabs of {res.y_slab} in "
+            f"{wall:.3f} s ({slices / wall:.1f} slices/s), sum of slab solves "
+            f"{solve_sum:.3f} s | per slab load "
+            f"{[round(t, 4) for t in res.load_s]} upload "
+            f"{[round(t, 4) for t in res.upload_s]} solve "
+            f"{[round(t, 4) for t in res.solve_s]} s | rel err mean "
+            f"{rel.mean():.4f} | every slab == the in-memory solve of its "
+            f"{sp.y_slab} slices, bit for bit")
+        log(f"stream critical path per slab {[round(t, 4) for t in res.slab_s]}"
+            " s; span totals " + ", ".join(
+                f"{k} {v:.4f} s" for k, v in spans.items()))
+        ref_bytes = (sp.slab_bytes - sp.extra_fixed_bytes
+                     - sp.y_slab * sp.extra_per_slice_bytes)
+        out["reference_slab_bytes"] = ref_bytes
+        log(f"stream memory: peak device memory over the drain {peak} B "
+            f"({peak / 2**30:.3f} GiB) against slab_bytes {sp.slab_bytes} B "
+            f"(ratio {peak / sp.slab_bytes:.3f}; fixed {sp.fixed_bytes}, "
+            f"{sp.y_slab} x per-slice {sp.y_slab * sp.per_slice_bytes}; the "
+            f"reference's terms alone {ref_bytes} B, ratio "
+            f"{peak / ref_bytes:.3f}; the port's extras "
+            f"{sp.extra_fixed_bytes} B fixed, {sp.extra_per_slice_bytes} B "
+            f"a slice); at bind {bind_peak} B; smem_bytes {sp.smem_bytes} "
+            "per SM")
+        walls = {"overlap": wall}
+        for tag, kw in (("sync", dict(device_upload="sync")),
+                        ("no_prefetch", dict(overlap=False))):
+            other, walls[tag], _ = drain(tag, **kw)
+            if not np.array_equal(other.volume.to_array(), volume):
+                raise AssertionError(f"stream {tag}: volume differs from "
+                                     "the overlapped drain")
+            log(f"stream {tag}: {walls[tag]:.3f} s, upload "
+                f"{[round(t, 4) for t in other.upload_s]} solve "
+                f"{[round(t, 4) for t in other.solve_s]} s; volume == the "
+                "overlapped drain, bit for bit")
+        out["walls_s"] = walls
+        ck = os.path.join(tmp, "ck")
+        with inject.activate(FaultPlan(seed=1).add(
+                "stream/after_slab", "preempt", key=1, attempts=(0,))):
+            try:
+                drain("resume", ckpt_dir=ck, checkpoint_every=1)
+            except InjectedPreemption:
+                pass
+            else:
+                raise AssertionError("the preemption after slab 1 did not "
+                                     "stop the drain")
+        rest, _, _ = drain("resume", ckpt_dir=ck)
+        if rest.skipped != [0, sp.y_slab] or not np.array_equal(
+                rest.volume.to_array(), volume):
+            raise AssertionError(f"resume: skipped {rest.skipped}, or the "
+                                 "volume differs from the uninterrupted one")
+        log(f"stream resume: preempted after slab 1, resumed skipping "
+            f"{rest.skipped}, solving {rest.solved}; volume == the "
+            "uninterrupted drain, bit for bit")
+        with inject.activate(FaultPlan(seed=2).add(
+                "store/read", "io_error", key=writer_slab, attempts=(0,))):
+            healed, _, _ = drain("transient", retry=quick)
+        if healed.retries != 1 or not np.array_equal(
+                healed.volume.to_array(), volume):
+            raise AssertionError(f"transient io_error: {healed.retries} "
+                                 "retries, or the volume differs")
+        log("stream transient: one io_error at store/read absorbed by "
+            f"{healed.retries} retry; volume == the clean drain, bit for bit")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"stream phase: {out['phase_s']:.1f} s (simulation "
+        f"{out['simulate_s']:.1f} s)")
+    return out
 
 
 MESH_CFG = dict(n_data=4, socket=2)  # phase 6's PartitionConfig fields
@@ -1384,6 +1591,14 @@ def main():
     counts["row1"] += mesh_launches["sorted"]
     counts["row1q"] += mesh_launches["sorted_q"]
     runs.update(mesh_solves)
+    phase("phase 7: out-of-core streaming")
+    xs.reset_launches()
+    stream = stream_path(plan, a, device)
+    stream["launches"] = dict(xs.LAUNCHES)
+    log(f"stream path launches per kernel: {stream['launches']}")
+    if stream["launches"]["sorted"] == 0:
+        raise AssertionError("row 1 must run on the streaming path")
+    counts["row1"] += stream["launches"]["sorted"]
     # phase 5 before phase 4: a torch.profiler session leaves every later
     # launch slower on the host, which the chunked row 4 would measure
     phase("phase 5: times")
@@ -1409,6 +1624,7 @@ def main():
     kernels[0]["profiles"] = profiles
     kernels[0]["mesh"] = dict(checks=mesh_checks, tables=mesh_tables,
                               launches=mesh_launches, shards=mesh_shards)
+    kernels[0]["stream"] = stream
     phase("done")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -44,7 +44,9 @@ __all__ = [
     "PartitionConfig",
     "OperatorShards",
     "Plan",
+    "ShapeSpec",
     "build_plan",
+    "estimate_plan",
     "build_sparse_exchange",
     "build_hier_sparse_exchange",
     "default_socket",
@@ -87,6 +89,28 @@ class PartitionConfig:
     #                 sample strided chunks of every row, fragmenting the
     #                 union (92% length-1 segments at bench scale).
     slot_order: str = "runs"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """The shape and dtype of an array that is not allocated: the leaves
+    of :func:`estimate_plan`'s operators (the reference uses
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: np.dtype
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape", tuple(int(d) for d in self.shape))
+        object.__setattr__(self, "dtype", np.dtype(self.dtype))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
 
 
 @dataclasses.dataclass
@@ -171,7 +195,7 @@ class OperatorShards:
         metadata.  The staged ``[B, S, BUF, F]`` window tensor of the
         legacy gather path is a *transient*, not part of the operator --
         and the fused kernel never allocates it at all (its staging is
-        the O(VMEM) double buffer, see ``kernels.xct_spmm.vmem_bytes``).
+        the shared-memory ring, see ``kernels.xct_spmm.smem_bytes``).
 
         ``value_bytes=None`` reads the width off ``vals`` itself (the
         shards normally hold the f32 master copy, so pass the policy's
@@ -532,6 +556,73 @@ def build_plan(
     )
 
 
+def estimate_plan(geo: XCTGeometry, cfg: PartitionConfig) -> Plan:
+    """Analytic shard-shape estimation for budget planning at full scale.
+
+    Returns a Plan whose OperatorShards carry :class:`ShapeSpec` leaves
+    (no allocation, no system-matrix build -- Brain-scale nnz is
+    ~7e11).  Geometry model (the reference's constants, calibrated
+    against real plans at n in [64, 256]):
+
+      * footprint rows/device ~ 1.8 * n_rows / sqrt(P)   (sqrt2 shadow x
+        ~1.27 Hilbert-scatter/imbalance margin)
+      * max per-device row nnz ~ min(1.45 n, 2.4 n / sqrt(P))  (proj);
+        for A^T rows are voxels: ~ min(1.3 K, 2.4 * 1.3 K / sqrt(P))
+      * window BUF ~ 6 (R + K), pair volume V ~ 2.5 * foot / P
+    """
+    from ..kernels.traffic import est_segments_per_stage
+    from ..kernels.xct_spmm import _dma_classes
+
+    P, R, K = cfg.n_data, cfg.rows_per_block, cfg.nnz_per_stage
+    align = max(8, R)
+    tomo_chunk = _pad_to(int(math.ceil(geo.n_vox / P)), align)
+    sino_chunk = _pad_to(int(math.ceil(geo.n_rays / P)), align)
+    nnz_total = geo.n_rays * 1.195 * geo.n
+    sqrt_p = math.sqrt(P)
+
+    def one(n_rows, n_cols, rows_per_dev, cols_per_dev):
+        foot = min(n_rows, int(1.8 * n_rows / sqrt_p) + R)
+        mean_nnz = nnz_total / P / max(foot, 1)
+        s = max(1, int(math.ceil(1.35 * mean_nnz / K)))
+        # virtual rows: one per footprint row plus splits for fat rows,
+        # ~1.2x slot utilization headroom
+        vrows = int(1.2 * max(foot, nnz_total / P / (s * K)))
+        b = _pad_to(max(1, int(math.ceil(vrows / R))), 8)
+        buf = _pad_to(min(6 * (R + K), R * K), 8)
+        nseg = _pad_to(
+            est_segments_per_stage(buf, slot_order=cfg.slot_order), 8
+        )
+        v = _pad_to(max(8, int(2.5 * vrows / P)), 8)
+        op = OperatorShards(
+            inds=ShapeSpec((P, b, s, R, K), np.int16),
+            vals=ShapeSpec((P, b, s, R, K), np.float32),
+            winmap=ShapeSpec((P, b, s, buf), np.int32),
+            winsegs=ShapeSpec((P, b, s, nseg, 3), np.int32),
+            segoff=ShapeSpec((P, b, s, len(_dma_classes(buf)) + 1),
+                             np.int32),
+            row_map=ShapeSpec((P, b, R), np.int32),
+            foot_rows=None,
+            n_rows_pad=rows_per_dev * P,
+            n_cols_pad=cols_per_dev * P,
+            rows_per_dev=rows_per_dev,
+            cols_per_dev=cols_per_dev,
+            nnz=int(nnz_total),
+        )
+        op.est_v = v  # type: ignore[attr-defined]
+        op.est_foot = foot  # type: ignore[attr-defined]
+        # chunk layout marker: lets estimate_hier_sparse pick the
+        # adjacent-chunk union model for socket-aware plans
+        op.est_socket = cfg.socket  # type: ignore[attr-defined]
+        return op
+
+    proj = one(geo.n_rays, geo.n_vox, sino_chunk, tomo_chunk)
+    back = one(geo.n_vox, geo.n_rays, tomo_chunk, sino_chunk)
+    return Plan(
+        geo=geo, cfg=cfg, row_perm=None, col_perm=None,
+        proj=proj, back=back,
+    )
+
+
 def build_sparse_exchange(
     op: OperatorShards,
 ) -> tuple[np.ndarray, np.ndarray, int]:
@@ -709,8 +800,8 @@ def estimate_hier_sparse(
         socket-aware plans).
 
     ``socket_aware=None`` infers the layout from the operator's
-    ``est_socket`` attribute (attached by the reference's
-    ``estimate_plan`` from ``cfg.socket``; not ported yet, ROADMAP.md).
+    ``est_socket`` attribute (attached by :func:`estimate_plan` from
+    ``cfg.socket``).
     ``V2`` carries the usual ~1.6x imbalance margin over the even split
     of a W-group across slow peers.
     """

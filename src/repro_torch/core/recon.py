@@ -180,6 +180,10 @@ class Reconstructor:
         # shared by the ranks and batch groups on it
         self._side = (side_streams(d for g in self.groups for d in g)
                       if cfg.overlap else {})
+        # stage_sino's uploads: a stream of their own, so that an upload
+        # from another thread does not queue behind the solve's kernels
+        self._stage_stream = (torch.cuda.Stream(self.device)
+                              if self.device.type == "cuda" else None)
         # another group's rank on a device of its own binds its own copy
         self._other = {
             (p, d): self._device_arrays([d], [p])[0]
@@ -448,8 +452,13 @@ class Reconstructor:
             # entries overflows f16's 65504 range.  The group's vectors
             # are global, so this sums the rows of its data ranks only
             # (the reference's local sum + psum over the data axes, in
-            # another order).
-            return torch.sum(u.to(torch.float32) * v.to(torch.float32), dim=0)
+            # another order).  The f32 products are summed in f64 and the
+            # sum rounded once: PyTorch's row sums reduce in an order that
+            # depends on the column count, and an f32 sum would carry
+            # that order into the CG's last bits, which 8 iterations
+            # amplify to 1e-2 (a streamed slab against the full volume)
+            return torch.sum(u.to(torch.float32) * v.to(torch.float32), dim=0,
+                             dtype=torch.float64).to(torch.float32)
 
         return project, backproject, dot_rows
 
@@ -506,9 +515,11 @@ class Reconstructor:
     def stage_sino(self, sino_nat) -> StagedSlab:
         """Pack + normalize + upload one sinogram slab (host -> device).
 
-        The copy goes through pinned host memory without blocking the
-        host; this method then waits for it, so the caller's timing is
-        honest.
+        The copy goes through pinned host memory on a CUDA stream of the
+        reconstructor's own (so a prefetch thread's upload runs beside
+        the solve on the device's default stream); this method then
+        waits for that stream alone, so the caller's timing is honest and
+        the slab is on the device when it returns.
         """
         self._check_slices(sino_nat.shape[1])
         with obs_span("recon/stage", slices=int(sino_nat.shape[1])):
@@ -520,9 +531,12 @@ class Reconstructor:
             scale = np.exp2(
                 np.round(np.log2(1.0 / np.maximum(m, 1e-30)))
             ).astype(np.float32)
-            y_dev = self._upload(y * scale)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            if self._stage_stream is None:
+                y_dev = self._upload(y * scale)
+            else:
+                with torch.cuda.stream(self._stage_stream):
+                    y_dev = self._upload(y * scale)
+                self._stage_stream.synchronize()
         return StagedSlab(
             y=y_dev, scale=scale, n_slices=int(sino_nat.shape[1])
         )
@@ -543,6 +557,11 @@ class Reconstructor:
             if isinstance(sino_nat, StagedSlab)
             else self.stage_sino(sino_nat)
         )
+        if staged.y.device.type == "cuda":
+            # staged on the staging stream, read on this one: the caching
+            # allocator must not hand its memory out again before this
+            # stream is done with it
+            staged.y.record_stream(torch.cuda.current_stream(staged.y.device))
         scale = staged.scale
         x0 = (
             self.pack_tomo(x0_nat) * scale

@@ -175,10 +175,11 @@ enum Staging : int { kSorted = 0, kUnsorted = 1, kPerRow = 2, kStaged = 3 };
 
 // ---- one step part + v * x in the compute type C ---------------------
 // Rounded as the reference computes it on its CPU validation platform
-// (and as the plain version does): f16 evaluates the step in f32, where
-// the product of two f16 values is exact, and rounds once to f16; bf16,
-// f32 and f64 round the product and then the sum.  The _rn intrinsics
-// keep nvcc from contracting a multiply and an add into one FMA.
+// (and as the plain version does): f32 rounds the step once, one fused
+// multiply-add, as XLA contracts the reference's acc + v * x; f16
+// evaluates the step in f32, where the product of two f16 values is
+// exact, and rounds once to f16; bf16 and f64 round the product and then
+// the sum.  The _rn intrinsics say which: nvcc contracts none of them.
 template <typename C>
 struct Arith;
 
@@ -198,7 +199,7 @@ template <>
 struct Arith<float> {
   static __device__ __forceinline__ float zero() { return 0.0f; }
   static __device__ __forceinline__ float step(float p, float v, float x) {
-    return __fadd_rn(p, __fmul_rn(v, x));
+    return __fmaf_rn(v, x, p);
   }
   static __device__ __forceinline__ float to_f32(float a) { return a; }
 };

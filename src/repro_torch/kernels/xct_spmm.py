@@ -64,9 +64,11 @@ __all__ = [
     "spmm_block_ell_plain",
     "spmm_block_ell_staged",
     "spmm_block_ell_staged_plain",
+    "fma_f32",
     "build",
     "reset_launches",
     "smem_bytes",
+    "sm_smem_bytes",
     "launch_geometry",
     "Geometry",
     "SMEM_LIMIT",
@@ -226,6 +228,17 @@ def launch_geometry(staging: str, s: int, r: int, k: int, buf: int, f: int,
     return best
 
 
+def sm_smem_bytes(staging: str, s: int, r: int, k: int, buf: int, f: int,
+                  store_bytes: int, resident: int | None = None) -> int:
+    """Dynamic shared memory one launch takes on an SM: its
+    :func:`launch_geometry` ring times the CTAs an SM holds of it (of no
+    more than ``resident``, as there).  The port's counterpart of the
+    reference's per-core ``vmem_bytes``; needs no card."""
+    geo = launch_geometry(staging, s, r, k, buf, f, store_bytes, resident)
+    resident = _CTAS_PER_SM[-1] if resident is None else max(1, resident)
+    return geo.smem * min(resident, _SM_SMEM // (geo.smem + 1024))
+
+
 def _sized_for(ctas, staging, s, r, k, buf, f, store_bytes) -> Geometry:
     """The ring of :func:`launch_geometry` for ``ctas`` CTAs per SM."""
     s = max(int(s), 1)
@@ -345,24 +358,79 @@ def reset_launches() -> None:
     spmm_block_ell_staged.launches = 0
 
 
-def _plain_stages(inds, vals, window_of, f, compute_dtype):
+def fma_f32(part, prod):
+    """``part + prod`` rounded once to f32, as a fused multiply-add rounds
+    ``part + v * x``: ``part`` f32, ``prod`` the f64 product of two f32
+    values (exact in f64).  Where the f64 sum is inexact it is taken to
+    the odd one of the two f64 neighbours of the exact sum (round to
+    odd), which makes the second rounding, to f32, the correct one."""
+    p = part.to(torch.float64)
+    s = p + prod
+    bb = s - p
+    err = (p - (s - bb)) + (prod - bb)  # exact: s + err == p + prod
+    even = (s.view(torch.int64) & 1) == 0
+    towards = torch.copysign(torch.full_like(s, float("inf")), err)
+    s = torch.where((err != 0) & even, torch.nextafter(s, towards), s)
+    return s.to(torch.float32)
+
+
+# significant bits of each dtype's values
+_BITS = {torch.float64: 53, torch.float32: 24, torch.float16: 11,
+         torch.bfloat16: 8}
+
+
+def _rounds_twice(parts, prods) -> bool:
+    """Whether rounding any f64 sum ``part + prod`` to f32 differs from
+    rounding the exact sum once: only an inexact f64 sum on an f32
+    midpoint (low 29 mantissa bits ``1 << 28``) or in f32's subnormal
+    range can."""
+    p, d = torch.stack(parts), torch.stack(prods)
+    s = p + d
+    bb = s - p
+    inexact = (p - (s - bb)) + (d - bb) != 0
+    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    tiny = s.abs() < 2.0 ** -126
+    return bool((inexact & (mid | tiny)).any())
+
+
+def _plain_stages(inds, vals, window_of, f, compute_dtype,
+                  vals_bits=None):
     """The float contract over stages; ``window_of(s)`` gives stage
-    ``s``'s ``[B, BUF, F]`` window in the storage dtype."""
+    ``s``'s ``[B, BUF, F]`` window in the storage dtype.  ``vals_bits``:
+    the most significant bits a value has (default: its dtype's)."""
     b, s, r, k = inds.shape
     fused = compute_dtype == torch.float16
-    wide = torch.float32 if fused else compute_dtype
     out = torch.zeros((b, r, f), dtype=torch.float32, device=inds.device)
     for si in range(s):
         window = window_of(si)  # [B, BUF, F] storage dtype
+        # a product of two values of 12 or fewer significant bits each
+        # (f16, bf16, dequantized int8 / fp8) is exact in f32, where the
+        # f32 sum then rounds once; an f32 operand's product needs f64
+        once = compute_dtype == torch.float32 and max(
+            vals_bits or _BITS[vals.dtype], _BITS[window.dtype]) > 12
+        wide = (torch.float32 if fused else torch.float64 if once
+                else compute_dtype)
         idx = inds[:, si].long()  # [B, R, K]
         v = vals[:, si].to(compute_dtype).to(wide)  # [B, R, K]
         part = torch.zeros((b, r, f), dtype=compute_dtype, device=out.device)
+        parts, steps = [], []
         for kk in range(k):
             g = torch.take_along_dim(
                 window, idx[:, :, kk, None].expand(b, r, f), dim=1
             )
             step = v[:, :, kk, None] * g.to(compute_dtype).to(wide)
-            part = (part.to(wide) + step).to(compute_dtype)
+            p = part.to(wide)
+            if once:
+                # the f64 product is exact and its f64 sum with part,
+                # rounded to f32, is one fused multiply-add's result
+                # unless it rounded twice: then the stage is redone
+                parts.append(p)
+                steps.append(step)
+            part = (p + step).to(compute_dtype)
+        if once and _rounds_twice(parts, steps):
+            part = torch.zeros_like(part)
+            for step in steps:
+                part = fma_f32(part, step)
         out += part.float()
     return out
 
@@ -394,11 +462,13 @@ def spmm_block_ell_plain(inds, vals, winmap, x, *,
     unsorted-segment kernel does -- and the partial is summed in
     ``compute_dtype`` from zero over ``k`` in order, then added into the
     fp32 output.  Rounding of one step ``part + v * x``, as the
-    reference computes it on its CPU validation platform: f16 evaluates
-    the step in f32 (the product of two f16 values is exact there) and
-    rounds once to f16; bf16, f32 and f64 round the product and then the
-    sum.  ``scales`` dequantizes packed int8/fp8 ``vals`` to f32 first
-    (``2**scales[b, s]`` is exact).  Memory stays at one stage's window.
+    reference computes it on its CPU validation platform: f32 rounds the
+    step once, as one fused multiply-add does (XLA contracts the step;
+    :func:`fma_f32`); f16 evaluates the step in f32 (the product of two
+    f16 values is exact there) and rounds once to f16; bf16 and f64 round
+    the product and then the sum.  ``scales`` dequantizes packed int8/fp8
+    ``vals`` to f32 first (``2**scales[b, s]`` is exact).  Memory stays at
+    one stage's window.
     """
     if scales is not None:
         vals = dequantize_block_vals(vals, scales, torch.float32)
@@ -410,7 +480,8 @@ def spmm_block_ell_plain(inds, vals, winmap, x, *,
 
         def window_of(si):
             return x[_rows_from_segments(winsegs[:, si], buf)]
-    return _plain_stages(inds, vals, window_of, x.shape[-1], compute_dtype)
+    return _plain_stages(inds, vals, window_of, x.shape[-1], compute_dtype,
+                         vals_bits=None if scales is None else 8)
 
 
 def spmm_block_ell_staged_plain(inds, vals, window, *,

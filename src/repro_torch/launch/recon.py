@@ -10,10 +10,22 @@ ranks sharing the CPU under ``--device cpu``; ``--comm`` picks the
 partial-data reduction among them.  ``--trace OUT.json`` records the
 ``repro_torch.obs`` spans of the run and writes them as a Chrome
 trace-event JSON (load it at ui.perfetto.dev).
+
+Out-of-core streaming (``repro_torch.stream``): simulate the sinogram
+straight into an on-disk slab store, then drain it through the solver
+under a byte budget -- the volume never materializes in host RAM:
+
+  PYTHONPATH=src python -m repro_torch.launch.recon --n 64 --slices 32 \
+      --stream --mem-budget 64
+
+A drain that quarantines a slab exits with code 3; a resume with the
+same ``--workdir`` re-attempts it.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -24,6 +36,7 @@ from ..core.recon import ReconConfig, Reconstructor, resolve_device
 from ..data.phantom import phantom_slices, simulate_measurements
 from ..dist import Topology
 from ..obs import export as obs_export
+from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from .mesh import make_mesh
 
@@ -31,7 +44,6 @@ MODES = ("direct", "rs", "hier", "sparse", "hier-sparse")
 
 # options of the reference driver that the port does not run yet
 _NOT_PORTED = {
-    "stream": "--stream (out-of-core streaming): ROADMAP.md queue 1, stream/",
     "tune_dir": "--tune-dir (tuning passports): ROADMAP.md queue 1, "
                 "tuning/observability hooks",
 }
@@ -57,8 +69,35 @@ def main(argv=None):
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="cuda runs the hand-written kernel; cpu its plain version",
     )
-    ap.add_argument("--stream", action="store_true",
-                    help="not ported yet")
+    ap.add_argument(
+        "--stream", action="store_true",
+        help="out-of-core slab streaming through repro_torch.stream",
+    )
+    ap.add_argument(
+        "--mem-budget", type=float, default=256.0,
+        help="MiB budget for --stream slab sizing (operator + slabs)",
+    )
+    ap.add_argument(
+        "--workdir", default=None,
+        help="store + resume-manifest dir for --stream (default: temp)",
+    )
+    ap.add_argument(
+        "--device-upload", default="overlap",
+        choices=("overlap", "sync"),
+        help="--stream: upload slab i+1 to the device in the prefetch "
+             "thread, on a CUDA stream of its own (overlap), or on the "
+             "critical path (sync)",
+    )
+    ap.add_argument(
+        "--max-retries", type=int, default=2,
+        help="--stream: transient-failure retries per slab before "
+             "quarantine (resil.RetryPolicy; total tries = retries + 1)",
+    )
+    ap.add_argument(
+        "--fail-fast", action="store_true",
+        help="--stream: re-raise the first slab failure instead of "
+             "retrying / quarantining (debugging)",
+    )
     ap.add_argument(
         "--trace", default=None, metavar="OUT.json",
         help="record repro_torch.obs spans and write a Chrome trace-event "
@@ -77,15 +116,18 @@ def main(argv=None):
     old = obs_trace.get_tracer()
     tracer = obs_trace.enable()
     try:
-        out = _run(args)
+        return _run(args)
     finally:
+        # written for a partial drain (exit code 3) too, as the reference
+        # writes it before it exits
         obs_trace.set_tracer(old)
-    obs_export.write_chrome_trace(args.trace, tracer)
-    print(f"trace written to {args.trace} (load at ui.perfetto.dev)")
-    # the reference also prints the modeled-vs-measured drift report; it
-    # waits for the H100 hardware table (ROADMAP.md queue 1, item 8)
-    print("drift report: not ported yet (ROADMAP.md queue 1)")
-    return out
+        obs_export.write_chrome_trace(args.trace, tracer)
+        print(f"trace written to {args.trace} (load at ui.perfetto.dev)")
+        # the reference also prints the modeled-vs-measured drift report;
+        # it waits for obs/drift.py and the H100 hardware table
+        # (ROADMAP.md queue 1)
+        print("drift report: not ported yet (obs/drift.py, ROADMAP.md "
+              "queue 1)")
 
 
 def _run(args):
@@ -123,6 +165,8 @@ def _run(args):
         rec = Reconstructor(plan, cfg=cfg, device=device)
     else:
         rec = Reconstructor(plan, cfg=cfg, topology=topology)
+    if args.stream:
+        return _run_streaming(args, geo, a, rec)
 
     x_true = phantom_slices(args.n, args.slices, seed=args.seed)
     sino = simulate_measurements(a, x_true, noise=args.noise,
@@ -139,6 +183,84 @@ def _run(args):
         f"{res[0,0]:.3e} -> {res[-1,0]:.3e}"
     )
     return x, res
+
+
+def _run_streaming(args, geo, a, rec):
+    """Simulate -> store -> budgeted slab drain -> slab-wise QA."""
+    from ..resil import RetryPolicy
+    from ..stream import SlabStore, reconstruct_streaming, simulate_to_store
+
+    workdir = args.workdir or tempfile.mkdtemp(prefix="xct_stream_")
+    granule = rec.n_batch * rec.cfg.fuse
+    sino_store = SlabStore.create(
+        os.path.join(workdir, "sino"), geo.n_rays, args.slices, granule
+    )
+    print(
+        f"simulating {args.slices} slices into {sino_store.directory} "
+        f"({granule}-slice writer slabs)"
+    )
+    simulate_to_store(
+        a, args.n, sino_store, noise=args.noise, seed=args.seed
+    )
+    budget = int(args.mem_budget * 2**20)
+    t0 = time.time()
+    result = reconstruct_streaming(
+        rec, sino_store, os.path.join(workdir, "vol"),
+        iters=args.iters, mem_budget=budget,
+        ckpt_dir=os.path.join(workdir, "ckpt"),
+        device_upload=args.device_upload,
+        retry=RetryPolicy(max_attempts=max(args.max_retries, 0) + 1),
+        fail_fast=args.fail_fast,
+    )
+    dt = time.time() - t0
+    # slab-wise QA: the full volume never lives in host memory.
+    # Quarantined slabs have no shard on disk -- skip them.
+    failed = set(result.failed_slabs)
+    errs = []
+    for j0, j1 in result.volume.slabs():
+        if j0 in failed:
+            continue
+        x_true = phantom_slices(
+            args.n, args.slices, seed=args.seed, start=j0, stop=j1
+        )
+        x = result.volume.read(j0, j1)
+        errs.append(
+            np.linalg.norm(x - x_true, axis=0)
+            / np.linalg.norm(x_true, axis=0)
+        )
+    rel = np.concatenate(errs) if errs else np.asarray([np.nan])
+    split = ""
+    if result.solved:
+        split = (
+            f" | per-slab load/upload/solve "
+            f"{np.mean(result.load_s) * 1e3:.0f}/"
+            f"{np.mean(result.upload_s) * 1e3:.0f}/"
+            f"{np.mean(result.solve_s) * 1e3:.0f} ms"
+            + (" (upload hidden)" if result.upload_overlapped else "")
+        )
+    print(
+        f"streamed {args.slices} slices in "
+        f"{len(result.solved)} slab(s) of {result.y_slab} "
+        f"(budget {args.mem_budget:.0f} MiB, skipped "
+        f"{len(result.skipped)} via resume manifest) in {dt:.1f}s | "
+        f"{args.slices / dt:.1f} slices/s | rel err mean "
+        f"{rel.mean():.4f}" + split
+    )
+    if result.retries:
+        print(f"absorbed {result.retries} transient retr"
+              f"{'y' if result.retries == 1 else 'ies'}")
+    if result.escalated:
+        peak = obs_metrics.get_metrics().get("stream_escalation_peak_bytes")
+        print(f"escalated slab(s) at j0={result.escalated} one precision "
+              "rung up" + (f" (peak device memory {peak / 2**30:.2f} GiB "
+                           "after binding it)" if peak else ""))
+    if result.failed_slabs:
+        print(
+            f"PARTIAL: quarantined slab(s) at j0={result.failed_slabs} "
+            f"-- resume with the same --workdir to re-attempt"
+        )
+        raise SystemExit(3)
+    return result, rel
 
 
 if __name__ == "__main__":

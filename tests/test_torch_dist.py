@@ -12,8 +12,9 @@
     mesh (one subprocess: the device count must be set before JAX
     initializes), for the five modes under ``single`` and ``mixed``, the
     int8 wire, and 8-iteration ``mixed`` solves; against the JAX kernel
-    path (Pallas in interpret mode) bit for bit under ``mixed``, every
-    mode; and with two batch groups of two data ranks each;
+    path (Pallas in interpret mode) bit for bit under ``mixed`` and
+    ``single``, every mode; and with two batch groups of two data ranks
+    each;
   * the ordered scatter-add: ``ordered_index_add`` equals a sequential
     loop and the reference's ``.at[].add``, bit for bit;
   * rank order: a port output chunk moved to another rank fails the same
@@ -260,13 +261,15 @@ for mode in ("hier", "hier-sparse"):
     xr, res = rec.reconstruct(sino, iters=8)
     out["reconstruct:" + mode] = np.asarray(xr)
     out["resnorms:" + mode] = np.asarray(res)
-# the kernel path (Pallas in interpret mode), whose f16 bits the port's
-# kernel and ordered scatter-adds reproduce
+# the kernel path (Pallas in interpret mode), whose f16 and f32 bits the
+# port's kernel and ordered scatter-adds reproduce
 for mode in ("direct", "rs", "hier", "sparse", "hier-sparse"):
-    rec = Reconstructor(plan, topology=topo, cfg=ReconConfig(
-        precision="mixed", comm_mode=mode, fuse=2))
-    out["kernel:project:" + mode] = np.asarray(rec.project(x))
-    out["kernel:backproject:" + mode] = np.asarray(rec.backproject(y))
+    for prec, tag in (("mixed", ""), ("single", "/single")):
+        rec = Reconstructor(plan, topology=topo, cfg=ReconConfig(
+            precision=prec, comm_mode=mode, fuse=2))
+        out["kernel:project:" + mode + tag] = np.asarray(rec.project(x))
+        out["kernel:backproject:" + mode + tag] = np.asarray(
+            rec.backproject(y))
 # two batch groups ("data") of two data ranks ("model")
 plan2 = build_plan(geo, PartitionConfig(n_data=2, tile=4,
                    rows_per_block=16, nnz_per_stage=16), a=A)
@@ -337,11 +340,16 @@ def test_mesh_project_backproject_match_jax(jax_mesh_outputs, port_mesh,
     d = jax_mesh_outputs
     rec = _port_rec(port_mesh, key)
     assert [a["proj_inds"].device for a in rec._arrays] == rec.devices
+    mode, prec, wire = key.split("/")
     for fn, inp in (("project", d["x"]), ("backproject", d["y"])):
         got = getattr(rec, fn)(inp)
         ref = d[f"{fn}:{key}"]
         assert got.shape == ref.shape and np.isfinite(got).all()
         assert _rel(got, ref) < _tol(key), (fn, key, _rel(got, ref))
+        if prec == "single":
+            # the plain f32 step rounds once, as the JAX kernel path's
+            # contracted step does, so single equals it bit for bit
+            np.testing.assert_array_equal(got, d[f"kernel:{fn}:{mode}/single"])
 
 
 @pytest.mark.parametrize("precision,tol", [("single", 2e-6),

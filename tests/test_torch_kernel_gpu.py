@@ -648,3 +648,93 @@ def test_cuda_span_fence_waits_for_the_side_streams(cuda, monkeypatch):
     device_ms = max(start.elapsed_time(e) for e in ends)
     assert device_ms > 0
     assert (span["t1"] - span["t0"]) * 1e3 >= 0.98 * device_ms
+
+
+# p + v * x with p = v = 1 + 2**-23, x = 2**-24 * (1 - 2**-23): the exact
+# sum lies 2**-70 below an f32 midpoint, so rounding the product first,
+# or an f64 sum then f32, takes the wrong neighbour; one fused
+# multiply-add does not
+_HARD = (1 + 2.0 ** -23, 1 + 2.0 ** -23, 2.0 ** -24 * (1 - 2.0 ** -23))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SWEEP + [WIDE])
+def test_cuda_f32_kernel_rounds_the_step_once(cuda, shape):
+    """At f32/f32 row 1's step is one fused multiply-add, as the plain
+    version's (and XLA's contraction of the reference's step): the kernel
+    equals the plain version bit for bit on the sweep, and on a sum that
+    rounding twice gets wrong."""
+    inds, vals, winmap, x, segs, off = _cuda_inputs(
+        shape, "f32", cuda, _seed("fma", shape))
+    out = txs.spmm_block_ell(inds, vals, winmap, x, winsegs=segs,
+                             segoff=off)
+    plain = txs.spmm_block_ell_plain(inds, vals, winmap, x)
+    assert torch.equal(out, plain)
+    # eight rows, each 1 * p then v * x, on four columns
+    inds = torch.tensor([[[[0, 1]] * 8]], dtype=torch.int16, device=cuda)
+    vals = torch.tensor([[[[1.0, _HARD[1]]] * 8]], device=cuda)
+    xs = torch.tensor([[_HARD[0]] * 4, [_HARD[2]] * 4], device=cuda)
+    winmap = torch.tensor([[[0, 1]]], dtype=torch.int32, device=cuda)
+    segs, off = (torch.from_numpy(a).to(cuda) for a in
+                 tops.sort_segments_by_class(
+                     tops.winmap_segments(winmap.cpu().numpy()), 2))
+    out = txs.spmm_block_ell(inds, vals, winmap, xs, winsegs=segs,
+                             segoff=off)
+    want = float(np.float32(_HARD[0]))
+    assert out.flatten().tolist() == [want] * 32
+    assert torch.equal(out, txs.spmm_block_ell_plain(inds, vals, winmap, xs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("upload", ["overlap", "sync"])
+def test_cuda_streaming_two_slabs_match_in_memory(cuda, upload, tmp_path):
+    """A 2-slab drain on the card: each slab equals the in-memory solve
+    of the same 4 slices bit for bit, with the upload in the prefetch
+    thread or on the critical path, and row 1 ran for every solve."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.stream import SlabStore, reconstruct_streaming
+
+    plan, sino = _small_plan()
+    rec = Reconstructor(plan, ReconConfig(precision="mixed", fuse=2))
+    store = SlabStore.from_array(str(tmp_path / "sino"), sino, slab=2)
+    txs.reset_launches()
+    res = reconstruct_streaming(rec, store, str(tmp_path / "vol"), iters=5,
+                                y_slab=4, device_upload=upload)
+    assert res.complete and res.solved == [0, 4]
+    assert res.upload_overlapped == (upload == "overlap")
+    assert txs.LAUNCHES["sorted"] == 2 * 2 * (5 + 1) * 2
+    for j0, j1 in res.volume.slabs():
+        x, r = rec.reconstruct(sino[:, j0:j1], iters=5)
+        np.testing.assert_array_equal(res.volume.read(j0, j1), x)
+        np.testing.assert_array_equal(res.resnorms[:, j0:j1], r)
+
+
+@pytest.mark.gpu
+def test_cuda_stage_sino_uploads_on_its_own_stream(cuda):
+    """``stage_sino`` from another thread copies on the reconstructor's
+    staging stream: it returns while the default stream is still busy
+    with earlier work, and the staged slab is on the card."""
+    import threading
+
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+
+    plan, sino = _small_plan()
+    rec = Reconstructor(plan, ReconConfig(fuse=2))
+    assert rec._stage_stream is not None
+    assert rec._stage_stream != torch.cuda.default_stream(cuda)
+    rec.stage_sino(sino)  # warm-up: pinned-memory pool, allocator
+    default = torch.cuda.default_stream(cuda)
+    torch.cuda.synchronize()
+    out = {}
+    torch.cuda._sleep(int(4e9))  # about 2 s of the default stream
+    worker = threading.Thread(
+        target=lambda: out.update(staged=rec.stage_sino(sino),
+                                  busy=not default.query()))
+    worker.start()
+    worker.join()
+    assert out["busy"], "the upload waited for the default stream"
+    torch.cuda.synchronize()
+    staged = out["staged"]
+    assert staged.y.device.type == "cuda"
+    np.testing.assert_array_equal(staged.y.cpu().numpy(),
+                                  rec.pack_sino(sino) * staged.scale)

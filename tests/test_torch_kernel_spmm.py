@@ -172,6 +172,90 @@ def test_apply_operator_matches_jax_on_plan_shards(small_system, name, pair):
                                rtol=tol, atol=tol)
 
 
+def test_plain_f32_equals_jax_kernel_path_bit_for_bit(small_system):
+    """At f32/f32 the plain step rounds ``part + v * x`` once, as XLA's
+    contraction of the Pallas step into one fused multiply-add does: the
+    n=32 proj shard, seed-1 ``x`` of 2 columns, equals the JAX kernel
+    path (Pallas in interpret mode) bit for bit.  Rounding the product
+    first differed in 687 of 1024 outputs, by 1.5e-7 of max|.|."""
+    _, _, plan = small_system
+    op = plan.proj
+    x = np.random.default_rng(1).normal(size=(op.n_cols_pad, 2)).astype(
+        np.float32)
+    t = [torch.from_numpy(a[0]) for a in (op.inds, op.vals, op.winmap,
+                                          op.winsegs, op.segoff)]
+    out = txs.spmm_block_ell(t[0], t[1], t[2], torch.from_numpy(x),
+                             winsegs=t[3], segoff=t[4])
+    ref = jax_spmm(
+        jnp.asarray(op.inds[0]), jnp.asarray(op.vals[0]),
+        jnp.asarray(op.winmap[0]), jnp.asarray(x),
+        compute_dtype=jnp.float32, winsegs=jnp.asarray(op.winsegs[0]),
+        segoff=jnp.asarray(op.segoff[0]),
+    )
+    assert np.array_equal(out.numpy(), np.asarray(ref))
+    # the product rounded first, the old plain step, does not
+    twice = torch.zeros_like(out)
+    window = torch.from_numpy(x)[t[2].long()]
+    for si in range(t[0].shape[1]):
+        part = torch.zeros_like(out)
+        idx = t[0][:, si].long()
+        for kk in range(t[0].shape[-1]):
+            g = torch.take_along_dim(
+                window[:, si], idx[:, :, kk, None].expand(*out.shape), dim=1)
+            part = part + t[1][:, si, :, kk, None] * g
+        twice += part
+    assert not np.array_equal(twice.numpy(), np.asarray(ref))
+
+
+def _round_f32(exact):
+    """The f32 nearest to a Fraction, ties to even (the oracle)."""
+    from fractions import Fraction
+
+    c = np.float32(float(exact))
+    cands = [np.nextafter(c, np.float32(-np.inf)), c,
+             np.nextafter(c, np.float32(np.inf))]
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                     int(v.view(np.uint32)) & 1))
+
+
+# p + v * x with p = v = 1 + 2**-23, x = 2**-24 * (1 - 2**-23): the exact
+# sum lies 2**-70 below the f32 midpoint 1 + 3 * 2**-24, which an f64 sum
+# rounds onto, and ties-to-even then takes the wrong neighbour
+_HARD = (1 + 2.0 ** -23, 1 + 2.0 ** -23, 2.0 ** -24 * (1 - 2.0 ** -23))
+
+
+def test_fma_f32_rounds_once():
+    """``fma_f32`` is the correctly rounded ``p + v * x`` on random values
+    over wide exponent gaps and on a sum that an f64 sum followed by an
+    f32 rounding gets wrong; the plain version's stage takes it too."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(17)
+    n = 3000
+    p = (rng.normal(size=n) * np.exp2(rng.integers(-40, 40, n))).astype(
+        np.float32)
+    v = rng.normal(size=n).astype(np.float32)
+    x = (rng.normal(size=n) * np.exp2(rng.integers(-40, 40, n))).astype(
+        np.float32)
+    p[0], v[0], x[0] = (np.float32(a) for a in _HARD)
+    got = txs.fma_f32(torch.from_numpy(p), torch.from_numpy(v).double()
+                      * torch.from_numpy(x).double()).numpy()
+    want = np.array([_round_f32(Fraction(float(a)) + Fraction(float(b))
+                                * Fraction(float(c)))
+                     for a, b, c in zip(p, v, x)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    naive = (p.astype(np.float64) + v.astype(np.float64) * x).astype(
+        np.float32)
+    assert naive[0] != want[0] == np.float32(_HARD[0])
+    # one row, two slots: 1 * p, then v * x
+    inds = torch.tensor([[[[0, 1]]]], dtype=torch.int16)
+    vals = torch.tensor([[[[1.0, _HARD[1]]]]], dtype=torch.float32)
+    xs = torch.tensor([[_HARD[0]], [_HARD[2]]], dtype=torch.float32)
+    winmap = torch.tensor([[[0, 1]]], dtype=torch.int32)
+    out = txs.spmm_block_ell_plain(inds, vals, winmap, xs)
+    assert out.item() == float(np.float32(_HARD[0]))
+
+
 def test_unported_modes_raise_without_fallback():
     """The modes that raised before the port had their kernels now run
     and agree with the JAX kernels; unknown modes still raise."""

@@ -1,6 +1,8 @@
 """End-to-end reconstruction with the PyTorch port on the CPU: the five
 system tests of ``test_recon_system.py`` with their tolerances, the port
 against the JAX ``Reconstructor`` on the same plan, and the CLI."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -105,16 +107,23 @@ def test_oracle_path_matches_kernel_path(phantom32, port_plan):
 def test_port_matches_jax_reconstructor(small_system, phantom32, port_plan,
                                         precision, tol, extra):
     """Same plan, same sinogram, 5 iterations.  ``double`` is true f64 in
-    the port and f32 in the JAX package (no x64): f32 tolerance."""
+    the port and f32 in the JAX package (no x64): f32 tolerance.  Under
+    ``single`` and ``mixed`` one projection and one backprojection equal
+    the JAX kernel path's bit for bit; the solve differs in the last
+    bits, because the CG's row sums reduce in another order than XLA's
+    (ROADMAP.md, queue 3)."""
     _, _, plan = small_system
-    _, y = phantom32
-    x, res = _rec(port_plan, precision=precision, **extra).reconstruct(
-        y, iters=5
-    )
+    x_true, y = phantom32
+    port = _rec(port_plan, precision=precision, **extra)
+    x, res = port.reconstruct(y, iters=5)
     jrec = JaxReconstructor(
         plan, cfg=JaxConfig(precision=precision, comm_mode="rs", fuse=2,
                             **extra)
     )
+    if precision in ("single", "mixed"):
+        for fn, inp in (("project", x_true), ("backproject", y)):
+            np.testing.assert_array_equal(getattr(port, fn)(inp),
+                                          np.asarray(getattr(jrec, fn)(inp)))
     jx, jres = jrec.reconstruct(y, iters=5)
     jx = np.asarray(jx)
     np.testing.assert_allclose(x, jx, rtol=tol,
@@ -232,9 +241,8 @@ def test_unported_configurations_raise(small_system, phantom32, port_plan):
         Reconstructor(port_plan, ReconConfig(fuse=2), topology=two)
     # slice batches over a batch axis: each group of one rank takes two
     # slices, as the reference's batch shards do.  Its operators are the
-    # unbatched minibatch's, bit for bit; its CG dots sum 2 columns where
-    # the unbatched solve's sum 4, in another order, so the solve is held
-    # to the reference's at the mixed tolerance
+    # unbatched minibatch's, bit for bit, and so is its solve; against
+    # the reference the solve is held at the mixed tolerance
     batched = Topology.from_mesh(
         make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2)
     )
@@ -245,6 +253,11 @@ def test_unported_configurations_raise(small_system, phantom32, port_plan):
         np.testing.assert_array_equal(getattr(brec, fn)(inp),
                                       getattr(one, fn)(inp))
     xb, rb = brec.reconstruct(y, iters=8)
+    # the CG dots sum their rows in f64, so the column count does not
+    # reach the solve's bits: a group's solve is the one-group solve's
+    xo, ro = one.reconstruct(y, iters=8)
+    np.testing.assert_array_equal(xb, xo)
+    np.testing.assert_array_equal(rb, ro)
     jx, jres = JaxReconstructor(
         plan, cfg=JaxConfig(comm_mode="hier", fuse=2)).reconstruct(y, iters=8)
     np.testing.assert_allclose(xb, np.asarray(jx), rtol=5e-3,
@@ -289,8 +302,10 @@ def test_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize(
-    # --trace is ported; traced with an option that is not, the run stops
-    "argv", [["--stream"], ["--trace", "t.json", "--stream"],
+    # --trace and --stream are ported; with an option that is not, the run
+    # stops
+    "argv", [["--stream", "--tune-dir", "d"],
+             ["--trace", "t.json", "--stream", "--tune-dir", "d"],
              ["--tune-dir", "d"]],
 )
 def test_cli_rejects_unported_options(argv, capsys):
@@ -362,3 +377,57 @@ def test_cli_passes_precision_and_dma(monkeypatch, capsys):
     assert x.shape == (1024, 4) and np.isfinite(x).all()
     assert res[-1, 0] < res[0, 0]
     assert "5 CG iters on 4 slices" in capsys.readouterr().out
+
+
+def test_cli_streams_on_cpu(tmp_path, capsys):
+    """``--stream --device cpu``: the sinogram simulated into a store,
+    drained under a budget of a few slabs, checkpointed, the volume on
+    disk equal to the in-memory solve of each slab; a second run with the
+    same ``--workdir`` skips every slab; ``--trace`` writes the spans."""
+    from repro_torch.launch import recon as cli
+    from repro_torch.stream import SlabStore
+
+    argv = ["--n", "32", "--angles", "48", "--slices", "8", "--iters", "5",
+            "--fuse", "2", "--precision", "single", "--device", "cpu",
+            "--stream", "--mem-budget", "1.7", "--device-upload", "sync",
+            "--workdir", str(tmp_path / "w"),
+            "--trace", str(tmp_path / "t.json")]
+    result, rel = cli.main(argv)
+    out = capsys.readouterr().out
+    assert "simulating 8 slices" in out and "streamed 8 slices" in out
+    assert "drift report: not ported yet" in out
+    assert result.complete and result.y_slab < 8 and len(result.solved) > 1
+    assert rel.shape == (8,) and rel.mean() < 0.5
+    assert not result.upload_overlapped
+    sino = SlabStore.open(str(tmp_path / "w" / "sino"))
+    geo = tgeo.XCTGeometry(32, 48)
+    plan = tpart.build_plan(geo, tpart.PartitionConfig(),
+                            a=tgeo.build_system_matrix(geo))
+    rec = Reconstructor(plan, cfg=ReconConfig(precision="single", fuse=2),
+                        device="cpu")
+    for j0, j1 in result.volume.slabs():
+        x, _ = rec.reconstruct(sino.read(j0, j1), iters=5)
+        np.testing.assert_array_equal(result.volume.read(j0, j1), x)
+    with open(tmp_path / "t.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"stream/slab", "stream/solve", "recon/solve"} <= names
+    again, _ = cli.main(argv[:-2])
+    assert again.solved == [] and len(again.skipped) == len(result.solved)
+
+
+def test_cli_stream_exits_3_when_a_slab_is_quarantined(tmp_path, capsys):
+    from repro_torch.launch import recon as cli
+    from repro_torch.resil import FaultPlan, inject
+
+    plan = FaultPlan(seed=3).add("store/read", "io_error", key=2,
+                                 attempts=None)
+    with inject.activate(plan):
+        with pytest.raises(SystemExit) as ei:
+            cli.main(["--n", "32", "--angles", "48", "--slices", "4",
+                      "--iters", "3", "--fuse", "2", "--precision",
+                      "single", "--device", "cpu", "--stream",
+                      "--mem-budget", "1.7", "--max-retries", "0",
+                      "--workdir", str(tmp_path / "w")])
+    assert ei.value.code == 3
+    out = capsys.readouterr().out
+    assert "PARTIAL: quarantined slab(s) at j0=[2]" in out
