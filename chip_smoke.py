@@ -60,7 +60,23 @@ Phases, each fatal on failure:
    the critical path and with prefetch off, after a preemption and
    resume from the checkpoint, and with one transient read error
    absorbed by one retry; the peak device memory beside the budget model
-   and the per-slab load, upload and solve times are printed.
+   and the per-slab load, upload and solve times are printed;
+8. the reconstruction service (``repro_torch.serve``) on the card: a
+   ``ReconServer`` (8 GiB budget) whose plan cache is seeded with phase
+   3's plan (geometry A, ``mixed``), serving phase 7's store; a second
+   geometry B (n=256, 192 angles) and B under ``q8`` (C) are built cold
+   by the server.  Wave 1 serves A and B, wave 2 three A jobs (one
+   through a read that fails once) and C, then the background scheduler
+   serves B and A.  Every A volume must equal wave 1's and the in-memory
+   solve of its slices bit for bit, B's background volume wave 1's; the
+   cache must build three plans and every later batch but C's first be
+   warm; C's residual must fall below 0.05 of its first.  Per job the
+   queue, load, upload and solve seconds and the queue-to-first-slab,
+   jobs per second, the cache and peak memory over wave 2 are printed.
+   Then tuning and drift: the per-copy overhead calibrated on the card,
+   the autotuner on A at xct-shale's depth, its passport found by this
+   card's fingerprint, one A job whose slab the passport caps, and the
+   CLI with ``--tune-dir`` and ``--trace`` printing the drift report.
 
 At f32/f32 row 1 must equal its plain version bit for bit (phase 2):
 both round the step once, as one fused multiply-add.
@@ -70,9 +86,11 @@ limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -93,9 +111,9 @@ SWEEP = [  # (B, S, R, K, BUF, C, F): the kernel test sweep
     (3, 5, 32, 16, 48, 128, 64),
     # an odd BUF: most stages' winmap rows start off a 16-byte boundary
     (2, 5, 16, 16, 37, 128, 16),
+    # R=K=64, the autotuner's other block shape (phase 8's CLI may run it)
+    (2, 3, 64, 64, 96, 256, 16),
 ]
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 AB_ITERS = 5  # iterations of the staging A/B solves
 MODES = ("direct", "rs", "hier", "sparse", "hier-sparse")
 # phase 6's solves: (key, precision, comm mode, wire)
@@ -707,13 +725,13 @@ def span_timing(plan, sino, device, fuse, iters):
 STREAM_SLICES, WRITER_SLAB = 64, 16  # phase 7's volume and store shards
 
 
-def stream_path(plan, a, device, slices=STREAM_SLICES, fuse=FUSE,
+def stream_path(plan, a, device, tmp, slices=STREAM_SLICES, fuse=FUSE,
                 iters=ITERS, writer_slab=WRITER_SLAB):
-    """Phase 7: the main path's plan streamed slab by slab from disk.
-    Returns the phase's record; the caller reads the launch counts
-    around it."""
+    """Phase 7: the main path's plan streamed slab by slab from disk, the
+    store and the drains' volumes under the directory ``tmp``.  Returns
+    the phase's record and the sinogram store (phase 8 serves from it);
+    the caller reads the launch counts around it."""
     import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -760,124 +778,428 @@ def stream_path(plan, a, device, slices=STREAM_SLICES, fuse=FUSE,
                fixed_bytes=sp.fixed_bytes, per_slice_bytes=sp.per_slice_bytes,
                smem_bytes=sp.smem_bytes, bind_peak_bytes=int(bind_peak))
     quick = RetryPolicy(max_attempts=3, base_delay_s=0.0, jitter=0.0)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
-        store = SlabStore.create(os.path.join(tmp, "sino"), plan.geo.n_rays,
-                                 slices, writer_slab)
+    store = SlabStore.create(os.path.join(tmp, "sino"), plan.geo.n_rays,
+                             slices, writer_slab)
+    t0 = time.perf_counter()
+    simulate_to_store(a, n, store, seed=0)
+    out["simulate_s"] = time.perf_counter() - t0
+    mem = {}
+    for j0, j1 in store.slabs():
+        mem[j0] = rec.reconstruct(store.read(j0, j1), iters=iters)
+
+    def drain(tag, **kw):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        simulate_to_store(a, n, store, seed=0)
-        out["simulate_s"] = time.perf_counter() - t0
-        mem = {}
-        for j0, j1 in store.slabs():
-            mem[j0] = rec.reconstruct(store.read(j0, j1), iters=iters)
+        res = reconstruct_streaming(rec, store, os.path.join(tmp, tag),
+                                    iters=iters, mem_budget=budget, **kw)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        if res.failed_slabs or not res.complete:
+            raise AssertionError(f"stream {tag}: quarantined "
+                                 f"{res.failed_slabs}, complete "
+                                 f"{res.complete}")
+        return res, wall, peak
 
-        def drain(tag, **kw):
-            if cuda:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            res = reconstruct_streaming(rec, store, os.path.join(tmp, tag),
-                                        iters=iters, mem_budget=budget, **kw)
-            wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() if cuda else 0
-            if res.failed_slabs or not res.complete:
-                raise AssertionError(f"stream {tag}: quarantined "
-                                     f"{res.failed_slabs}, complete "
-                                     f"{res.complete}")
-            return res, wall, peak
-
-        old = obs_trace.get_tracer()
-        tracer = obs_trace.enable()
+    old = obs_trace.get_tracer()
+    tracer = obs_trace.enable()
+    try:
+        res, wall, peak = drain("overlap")
+    finally:
+        obs_trace.set_tracer(old)
+    # where the drain's wall goes, by span (the load and stage spans
+    # run on the prefetch thread, beside the others)
+    spans = {name: tracer.total_s(name) for name in (
+        "stream/slab", "stream/solve", "stream/write", "stream/load",
+        "stream/stage", "recon/solve")}
+    for j0, j1 in res.volume.slabs():
+        x, r = mem[j0]
+        if not (np.array_equal(res.volume.read(j0, j1), x)
+                and np.array_equal(res.resnorms[:, j0:j1], r)):
+            raise AssertionError(f"streamed slab [{j0}, {j1}) differs "
+                                 "from the in-memory solve")
+    volume = res.volume.to_array()
+    x_true = phantom_slices(n, slices, seed=0)
+    rel = np.linalg.norm(volume - x_true, axis=0) / np.linalg.norm(
+        x_true, axis=0)
+    solve_sum = float(np.sum(res.solve_s))
+    out.update(
+        slabs=len(res.solved), wall_s=wall, load_s=res.load_s,
+        upload_s=res.upload_s, solve_s=res.solve_s, slab_s=res.slab_s,
+        solve_sum_s=solve_sum, slices_per_s=slices / wall,
+        peak_bytes=int(peak), rel=float(rel.mean()), spans_s=spans,
+    )
+    log(f"stream overlap: {len(res.solved)} slabs of {res.y_slab} in "
+        f"{wall:.3f} s ({slices / wall:.1f} slices/s), sum of slab solves "
+        f"{solve_sum:.3f} s | per slab load "
+        f"{[round(t, 4) for t in res.load_s]} upload "
+        f"{[round(t, 4) for t in res.upload_s]} solve "
+        f"{[round(t, 4) for t in res.solve_s]} s | rel err mean "
+        f"{rel.mean():.4f} | every slab == the in-memory solve of its "
+        f"{sp.y_slab} slices, bit for bit")
+    log(f"stream critical path per slab {[round(t, 4) for t in res.slab_s]}"
+        " s; span totals " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in spans.items()))
+    ref_bytes = (sp.slab_bytes - sp.extra_fixed_bytes
+                 - sp.y_slab * sp.extra_per_slice_bytes)
+    out["reference_slab_bytes"] = ref_bytes
+    log(f"stream memory: peak device memory over the drain {peak} B "
+        f"({peak / 2**30:.3f} GiB) against slab_bytes {sp.slab_bytes} B "
+        f"(ratio {peak / sp.slab_bytes:.3f}; fixed {sp.fixed_bytes}, "
+        f"{sp.y_slab} x per-slice {sp.y_slab * sp.per_slice_bytes}; the "
+        f"reference's terms alone {ref_bytes} B, ratio "
+        f"{peak / ref_bytes:.3f}; the port's extras "
+        f"{sp.extra_fixed_bytes} B fixed, {sp.extra_per_slice_bytes} B "
+        f"a slice); at bind {bind_peak} B; smem_bytes {sp.smem_bytes} "
+        "per SM")
+    walls = {"overlap": wall}
+    for tag, kw in (("sync", dict(device_upload="sync")),
+                    ("no_prefetch", dict(overlap=False))):
+        other, walls[tag], _ = drain(tag, **kw)
+        if not np.array_equal(other.volume.to_array(), volume):
+            raise AssertionError(f"stream {tag}: volume differs from "
+                                 "the overlapped drain")
+        log(f"stream {tag}: {walls[tag]:.3f} s, upload "
+            f"{[round(t, 4) for t in other.upload_s]} solve "
+            f"{[round(t, 4) for t in other.solve_s]} s; volume == the "
+            "overlapped drain, bit for bit")
+    out["walls_s"] = walls
+    ck = os.path.join(tmp, "ck")
+    with inject.activate(FaultPlan(seed=1).add(
+            "stream/after_slab", "preempt", key=1, attempts=(0,))):
         try:
-            res, wall, peak = drain("overlap")
-        finally:
-            obs_trace.set_tracer(old)
-        # where the drain's wall goes, by span (the load and stage spans
-        # run on the prefetch thread, beside the others)
-        spans = {name: tracer.total_s(name) for name in (
-            "stream/slab", "stream/solve", "stream/write", "stream/load",
-            "stream/stage", "recon/solve")}
-        for j0, j1 in res.volume.slabs():
-            x, r = mem[j0]
-            if not (np.array_equal(res.volume.read(j0, j1), x)
-                    and np.array_equal(res.resnorms[:, j0:j1], r)):
-                raise AssertionError(f"streamed slab [{j0}, {j1}) differs "
-                                     "from the in-memory solve")
-        volume = res.volume.to_array()
-        x_true = phantom_slices(n, slices, seed=0)
-        rel = np.linalg.norm(volume - x_true, axis=0) / np.linalg.norm(
-            x_true, axis=0)
-        solve_sum = float(np.sum(res.solve_s))
-        out.update(
-            slabs=len(res.solved), wall_s=wall, load_s=res.load_s,
-            upload_s=res.upload_s, solve_s=res.solve_s, slab_s=res.slab_s,
-            solve_sum_s=solve_sum, slices_per_s=slices / wall,
-            peak_bytes=int(peak), rel=float(rel.mean()), spans_s=spans,
-        )
-        log(f"stream overlap: {len(res.solved)} slabs of {res.y_slab} in "
-            f"{wall:.3f} s ({slices / wall:.1f} slices/s), sum of slab solves "
-            f"{solve_sum:.3f} s | per slab load "
-            f"{[round(t, 4) for t in res.load_s]} upload "
-            f"{[round(t, 4) for t in res.upload_s]} solve "
-            f"{[round(t, 4) for t in res.solve_s]} s | rel err mean "
-            f"{rel.mean():.4f} | every slab == the in-memory solve of its "
-            f"{sp.y_slab} slices, bit for bit")
-        log(f"stream critical path per slab {[round(t, 4) for t in res.slab_s]}"
-            " s; span totals " + ", ".join(
-                f"{k} {v:.4f} s" for k, v in spans.items()))
-        ref_bytes = (sp.slab_bytes - sp.extra_fixed_bytes
-                     - sp.y_slab * sp.extra_per_slice_bytes)
-        out["reference_slab_bytes"] = ref_bytes
-        log(f"stream memory: peak device memory over the drain {peak} B "
-            f"({peak / 2**30:.3f} GiB) against slab_bytes {sp.slab_bytes} B "
-            f"(ratio {peak / sp.slab_bytes:.3f}; fixed {sp.fixed_bytes}, "
-            f"{sp.y_slab} x per-slice {sp.y_slab * sp.per_slice_bytes}; the "
-            f"reference's terms alone {ref_bytes} B, ratio "
-            f"{peak / ref_bytes:.3f}; the port's extras "
-            f"{sp.extra_fixed_bytes} B fixed, {sp.extra_per_slice_bytes} B "
-            f"a slice); at bind {bind_peak} B; smem_bytes {sp.smem_bytes} "
-            "per SM")
-        walls = {"overlap": wall}
-        for tag, kw in (("sync", dict(device_upload="sync")),
-                        ("no_prefetch", dict(overlap=False))):
-            other, walls[tag], _ = drain(tag, **kw)
-            if not np.array_equal(other.volume.to_array(), volume):
-                raise AssertionError(f"stream {tag}: volume differs from "
-                                     "the overlapped drain")
-            log(f"stream {tag}: {walls[tag]:.3f} s, upload "
-                f"{[round(t, 4) for t in other.upload_s]} solve "
-                f"{[round(t, 4) for t in other.solve_s]} s; volume == the "
-                "overlapped drain, bit for bit")
-        out["walls_s"] = walls
-        ck = os.path.join(tmp, "ck")
-        with inject.activate(FaultPlan(seed=1).add(
-                "stream/after_slab", "preempt", key=1, attempts=(0,))):
-            try:
-                drain("resume", ckpt_dir=ck, checkpoint_every=1)
-            except InjectedPreemption:
-                pass
-            else:
-                raise AssertionError("the preemption after slab 1 did not "
-                                     "stop the drain")
-        rest, _, _ = drain("resume", ckpt_dir=ck)
-        if rest.skipped != [0, sp.y_slab] or not np.array_equal(
-                rest.volume.to_array(), volume):
-            raise AssertionError(f"resume: skipped {rest.skipped}, or the "
-                                 "volume differs from the uninterrupted one")
-        log(f"stream resume: preempted after slab 1, resumed skipping "
-            f"{rest.skipped}, solving {rest.solved}; volume == the "
-            "uninterrupted drain, bit for bit")
-        with inject.activate(FaultPlan(seed=2).add(
-                "store/read", "io_error", key=writer_slab, attempts=(0,))):
-            healed, _, _ = drain("transient", retry=quick)
-        if healed.retries != 1 or not np.array_equal(
-                healed.volume.to_array(), volume):
-            raise AssertionError(f"transient io_error: {healed.retries} "
-                                 "retries, or the volume differs")
-        log("stream transient: one io_error at store/read absorbed by "
-            f"{healed.retries} retry; volume == the clean drain, bit for bit")
+            drain("resume", ckpt_dir=ck, checkpoint_every=1)
+        except InjectedPreemption:
+            pass
+        else:
+            raise AssertionError("the preemption after slab 1 did not "
+                                 "stop the drain")
+    rest, _, _ = drain("resume", ckpt_dir=ck)
+    if rest.skipped != [0, sp.y_slab] or not np.array_equal(
+            rest.volume.to_array(), volume):
+        raise AssertionError(f"resume: skipped {rest.skipped}, or the "
+                             "volume differs from the uninterrupted one")
+    log(f"stream resume: preempted after slab 1, resumed skipping "
+        f"{rest.skipped}, solving {rest.solved}; volume == the "
+        "uninterrupted drain, bit for bit")
+    with inject.activate(FaultPlan(seed=2).add(
+            "store/read", "io_error", key=writer_slab, attempts=(0,))):
+        healed, _, _ = drain("transient", retry=quick)
+    if healed.retries != 1 or not np.array_equal(
+            healed.volume.to_array(), volume):
+        raise AssertionError(f"transient io_error: {healed.retries} "
+                             "retries, or the volume differs")
+    log("stream transient: one io_error at store/read absorbed by "
+        f"{healed.retries} retry; volume == the clean drain, bit for bit")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"stream phase: {out['phase_s']:.1f} s (simulation "
         f"{out['simulate_s']:.1f} s)")
+    return out, store
+
+
+SERVE_BUDGET = 8 << 30  # phase 8's server: bytes for operators + slabs
+SERVE_B = (256, 192)  # phase 8's second beamline geometry: n, angles
+TUNE_SLICES = 1792  # xct-shale's volume depth, which phase 7 cuts to 64
+
+
+class FlakyStore:
+    """A sinogram store whose first ``read`` fails with an ``OSError``:
+    a transient disk fault the server's retry policy must absorb."""
+
+    def __init__(self, store):
+        self.store, self.rows, self.n_slices = store, store.rows, store.n_slices
+        self.failed = 0
+
+    def read(self, j0, j1):
+        if not self.failed:
+            self.failed += 1
+            raise OSError(f"transient read fault at [{j0}, {j1})")
+        return self.store.read(j0, j1)
+
+
+def serve_path(plan, device, store, tmp, fuse=FUSE, iters=ITERS):
+    """Phase 8, the service: a ``ReconServer`` on the card with phase 3's
+    plan seeded into its cache (geometry A), a second geometry (B) and B
+    under q8 (C) built cold by the server; two waves of jobs, then the
+    background scheduler.  Returns the phase's record and the server's
+    A job volume; the caller reads the launch counts around it."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.geometry import XCTGeometry, build_system_matrix
+    from repro_torch.core.partition import PartitionConfig, plan_key
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.data.phantom import phantom_slices, simulate_measurements
+    from repro_torch.resil import RetryPolicy
+    from repro_torch.serve import JobSpec, ReconServer
+
+    t_phase = time.perf_counter()
+    geo_a = plan.geo
+    cfg_a = ReconConfig(precision="mixed", fuse=fuse)
+    cfg_c = ReconConfig(precision="q8", fuse=fuse)
+    geo_b = XCTGeometry(n=SERVE_B[0], n_angles=SERVE_B[1])
+    t0 = time.perf_counter()
+    a_b = build_system_matrix(geo_b)
+    sino_b = simulate_measurements(a_b, phantom_slices(geo_b.n, 32, seed=1),
+                                   seed=1)
+    sim_b_s = time.perf_counter() - t0
+    del a_b
+    srv = ReconServer(SERVE_BUDGET, device=device,
+                      workdir=os.path.join(tmp, "serve"), max_batch=4,
+                      fair_share=2)
+    key_a = plan_key(geo_a, PartitionConfig(), recon=cfg_a)
+
+    def seed_a():
+        rec = Reconstructor(plan, cfg_a, device)
+        vb = rec.policy.vals_bytes
+        return (plan, rec, plan.proj.hbm_bytes(value_bytes=vb)
+                + plan.back.hbm_bytes(value_bytes=vb))
+
+    t0 = time.perf_counter()
+    srv.cache.get_or_build(key_a, seed_a)
+    seed_s = time.perf_counter() - t0
+    rec_a = srv.cache.peek(key_a).rec
+    quick = RetryPolicy(max_attempts=3, base_delay_s=0.0, jitter=0.0)
+
+    def job_a(sino=store, **kw):
+        kw.setdefault("y_slab", fuse)
+        return JobSpec(geo=geo_a, sino=sino, rcfg=cfg_a, iters=iters,
+                       tenant="a", **kw)
+
+    def job_b(rcfg=cfg_a):
+        return JobSpec(geo=geo_b, sino=sino_b, rcfg=rcfg, iters=iters,
+                       tenant="b")
+
+    def wave(tag, specs):
+        """Submit ``specs`` and drain; every job must finish."""
+        t0 = time.perf_counter()
+        jobs = [srv.submit(s) for s in specs]
+        srv.drain()
+        wall = time.perf_counter() - t0
+        bad = [(j.id, j.status, j.error) for j in jobs if j.status != "done"]
+        if bad:
+            raise AssertionError(f"serve {tag}: jobs not done: {bad}")
+        return jobs, wall
+
+    def report(tag, jobs, wall):
+        rows = []
+        for j in jobs:
+            t = j.telemetry
+            rows.append(dict(
+                job=j.id, key=j.plan_key[:12], cold=t.plan_cold,
+                y_slab=j.y_slab, slabs=t.n_slabs, queue_s=t.queue_s,
+                first_slab_s=t.first_slab_s, load_s=t.load_s,
+                upload_s=t.upload_s, solve_s=t.solve_s, total_s=t.total_s,
+                retries=t.retries))
+            log(f"serve {tag} job {j.id} ({j.spec.tenant}, key "
+                f"{j.plan_key[:12]}, {'cold' if t.plan_cold else 'warm'}): "
+                f"{t.n_slabs} slabs of {j.y_slab} | queue {t.queue_s:.4f} s, "
+                f"queue-to-first-slab {t.first_slab_s:.4f} s, load "
+                f"{t.load_s:.4f} s, upload {t.upload_s:.4f} s, solve "
+                f"{t.solve_s:.4f} s, total {t.total_s:.4f} s, retries "
+                f"{t.retries}")
+        log(f"serve {tag}: {len(jobs)} jobs in {wall:.3f} s "
+            f"({len(jobs) / wall:.3f} jobs/s)")
+        return dict(jobs=rows, wall_s=wall, jobs_per_s=len(jobs) / wall)
+
+    def same(tag, job, want):
+        if not np.array_equal(job.volume.to_array(), want):
+            raise AssertionError(f"serve {tag}: job {job.id}'s volume "
+                                 "differs from its twin")
+
+    out = dict(budget=SERVE_BUDGET, simulate_b_s=sim_b_s, seed_s=seed_s)
+    # wave 1: A warm (seeded), B cold
+    (w1_a, w1_b), wall = wave("wave 1", [job_a(), job_b()])
+    out["wave1"] = report("wave 1", [w1_a, w1_b], wall)
+    vol_a, vol_b = w1_a.volume.to_array(), w1_b.volume.to_array()
+    x, _ = rec_a.reconstruct(store.read(0, fuse), iters=iters)
+    if not np.array_equal(vol_a[:, :fuse], x):
+        raise AssertionError("serve: A's first slab differs from the "
+                             "in-memory solve of its slices")
+    log(f"serve wave 1: A's first {fuse} slices == Reconstructor."
+        "reconstruct in memory, bit for bit")
+    # wave 2: three A jobs on the same store (one through a read that
+    # fails once) and C, B's geometry under q8, cold
+    flaky = FlakyStore(store)
+    specs = [job_a(), job_a(sino=flaky, retry=quick), job_b(cfg_c), job_a()]
+    n_batches = len(srv.batches)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    w2, wall = wave("wave 2", specs)
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    out["wave2"] = report("wave 2", w2, wall)
+    for j in (w2[0], w2[1], w2[3]):
+        same("wave 2", j, vol_a)
+    if w2[1].telemetry.retries != 1 or flaky.failed != 1:
+        raise AssertionError(f"serve: the flaky read retried "
+                             f"{w2[1].telemetry.retries} times")
+    res_c = w2[2].resnorms
+    if not (res_c[-1] < 0.05 * res_c[0]).all():
+        raise AssertionError("serve: C's residual did not fall below 0.05 "
+                             "of its first")
+    batches = srv.batches[n_batches:]
+    working = max(sum(srv._costs[i].working_bytes for i in b["jobs"])
+                  for b in batches)
+    model = srv.cache.bytes + working
+    out["wave2"].update(
+        batches=[dict(jobs=b["jobs"], cold=b["cold"]) for b in batches],
+        peak_bytes=int(peak), cache_bytes=int(srv.cache.bytes),
+        batch_working_bytes=int(working),
+        c_residual_ratio=float((res_c[-1] / res_c[0]).max()))
+    log(f"serve wave 2: batches {[(b['jobs'], b['cold']) for b in batches]}; "
+        f"the three A volumes == wave 1's, bit for bit (one after "
+        f"{w2[1].telemetry.retries} retry); C's residual ratio at most "
+        f"{out['wave2']['c_residual_ratio']:.4f}")
+    log(f"serve memory: peak device memory over wave 2 {peak} B "
+        f"({peak / 2**30:.3f} GiB) against the cache's {srv.cache.bytes} B "
+        f"+ the largest batch's working set {working} B = {model} B "
+        f"(ratio {peak / model:.3f})")
+    # the background scheduler thread: B and A again
+    srv.start()
+    try:
+        t0 = time.perf_counter()
+        bg = [srv.submit(job_b()), srv.submit(job_a())]
+        for j in bg:
+            if not j.wait(timeout=600) or j.status != "done":
+                raise AssertionError(f"serve background: job {j.id} "
+                                     f"{j.status} {j.error}")
+        wall = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    out["background"] = report("background", bg, wall)
+    same("background", bg[0], vol_b)
+    same("background", bg[1], vol_a)
+    later = srv.batches[n_batches:]
+    cold = [b["cold"] for b in later]
+    if cold.count(True) != 1 or srv.cache.stats()["builds"] != 3:
+        raise AssertionError(f"serve: builds {srv.cache.stats()}, batch "
+                             f"cold flags {cold}")
+    ratio = w1_b.telemetry.first_slab_s / bg[0].telemetry.first_slab_s
+    stats = srv.stats()
+    jobs_text = [ln for ln in srv.metrics_text().splitlines()
+                 if ln.startswith("serve_jobs_total")]
+    out.update(stats=stats, warm_cold_ratio=ratio,
+               serve_jobs_total=jobs_text)
+    log(f"serve background: B and A on the scheduler thread == their wave "
+        f"1 twins, bit for bit; B's queue-to-first-slab cold "
+        f"{w1_b.telemetry.first_slab_s:.4f} s / warm "
+        f"{bg[0].telemetry.first_slab_s:.4f} s = {ratio:.1f}x")
+    log(f"serve cache: {srv.cache.stats()}, hit rate "
+        f"{srv.cache.hit_rate:.3f}; " + "; ".join(jobs_text))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve phase: {out['phase_s']:.1f} s (B's matrix and sinogram "
+        f"{sim_b_s:.1f} s, A's seed {seed_s:.1f} s)")
+    return out, srv, vol_a
+
+
+def tune_path(plan, device, store, srv, vol_a, fuse=FUSE, iters=ITERS):
+    """Phase 8, tuning and drift: the per-copy overhead calibrated on the
+    card, the autotuner on the A geometry, its passport saved and found
+    by this card's fingerprint, one A job priced with it, and the CLI
+    with ``--tune-dir`` and ``--trace`` in a process of its own."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.partition import PartitionConfig
+    from repro_torch.core.recon import ReconConfig
+    from repro_torch.serve import AdmissionController, JobSpec
+    from repro_torch.tune import (
+        autotune,
+        calibrate_per_copy_overhead,
+        describe_hardware,
+        resolve_passport,
+        save_passport,
+    )
+
+    t_phase = time.perf_counter()
+    cal = calibrate_per_copy_overhead(device)
+    log(f"tune calibration: contig {cal['contig_issues']} issues in "
+        f"{cal['contig_seconds'] * 1e6:.2f} us, strided "
+        f"{cal['strided_issues']} issues in "
+        f"{cal['strided_seconds'] * 1e6:.2f} us -> "
+        f"{cal['per_copy_overhead_s']:.4g} s per modeled issue "
+        f"[{cal['overhead_source']}]")
+    t0 = time.perf_counter()
+    passport, trials = autotune(
+        plan.geo, mem_budget=SERVE_BUDGET, n_slices=TUNE_SLICES, fuse=fuse,
+        per_copy_overhead_s=cal["per_copy_overhead_s"],
+        overhead_source="measured")
+    tune_s = time.perf_counter() - t0
+    obj = passport.objective
+    base = obj.get("baseline", {})
+    log(f"tune autotune: {len(trials)} trials "
+        f"({sum(t['feasible'] for t in trials)} feasible) in {tune_s:.1f} s; "
+        f"knobs {passport.knobs}; modeled {obj['total_seconds']:.5g} s "
+        f"(issue {obj['dma_issue_seconds']:.4g}, memory "
+        f"{obj['hbm_seconds']:.4g}) against the default's "
+        f"{base.get('total_seconds', float('nan')):.5g} s (issue "
+        f"{base.get('dma_issue_seconds', float('nan')):.4g}, memory "
+        f"{base.get('hbm_seconds', float('nan')):.4g})")
+    out = dict(calibration=cal, tune_s=tune_s, knobs=passport.knobs,
+               objective=obj, hardware=describe_hardware())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tdir:
+        path = save_passport(passport, tdir)
+        found = resolve_passport(tdir)
+        if found != passport:
+            raise AssertionError(f"tune: {path} not found under this card's "
+                                 f"fingerprint {describe_hardware()}")
+        log(f"tune passport: {os.path.basename(path)} found under "
+            f"{describe_hardware()}")
+        # one A job priced with the passport: its y_slab cap
+        free = srv.admission
+        srv.admission = AdmissionController(
+            free.mem_budget, free.topology, fair_share=free.fair_share,
+            passport=found)
+        try:
+            spec = JobSpec(geo=plan.geo, sino=store, iters=iters,
+                           rcfg=ReconConfig(precision="mixed", fuse=fuse),
+                           tenant="a")
+            untuned = free.price(plan.geo, PartitionConfig(), spec.rcfg,
+                                 store.n_slices, plan=plan)
+            job = srv.submit(spec)
+            srv.drain()
+        finally:
+            srv.admission = free
+        cap = found.knobs["y_slab"]
+        want = min(untuned.y_slab, max(fuse, cap // fuse * fuse))
+        if job.status != "done" or job.y_slab != want:
+            raise AssertionError(f"tune: the passport's job {job.status}, "
+                                 f"y_slab {job.y_slab} (want {want})")
+        if not np.array_equal(job.volume.to_array(), vol_a):
+            raise AssertionError("tune: the passport's A job differs from "
+                                 "wave 1's")
+        log(f"tune admission: the passport's y_slab cap {cap} -> an A job "
+            f"of {job.y_slab}-slice slabs (untuned {untuned.y_slab}); volume "
+            "== wave 1's, bit for bit")
+        out.update(y_slab_cap=cap, y_slab=job.y_slab,
+                   y_slab_untuned=untuned.y_slab)
+        trace_path = os.path.join(tdir, "t.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.recon", "--n", "64",
+               "--angles", "48", "--slices", "16", "--fuse", "4", "--iters",
+               "10", "--tune-dir", tdir, "--trace", trace_path]
+        if device.type != "cuda":  # a rehearsal on the CPU
+            cmd += ["--device", "cpu"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              cwd=str(ROOT), timeout=300)
+        cli_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  cli: {line}")
+        if proc.returncode != 0 or "drift report (" not in proc.stdout \
+                or "tuning passport" not in proc.stdout:
+            raise AssertionError(f"tune CLI exit {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        out.update(cli_s=cli_s, cli_stdout=proc.stdout.splitlines())
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tune phase: {out['phase_s']:.1f} s (the CLI {cli_s:.1f} s)")
     return out
 
 
@@ -1322,10 +1644,14 @@ def cuda_ms(fn, reps, warm=2):
 def bound(slots, vals_bytes, x_bytes, out_bytes, extra=0):
     """The least time for one application: the bytes each input is read
     once and the output written once over the device-memory rate, or 2
-    flops per slot per column over the f32 rate, whichever is larger."""
+    flops per slot per column over the f32 rate (outside the tensor
+    cores), whichever is larger; both rates are the H100's
+    (``repro_torch.launch.hardware.HW``)."""
+    from repro_torch.launch.hardware import HW
+
     moved = slots * (2 + vals_bytes) + x_bytes + out_bytes + extra
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = 2 * slots * FUSE / F32_FLOP_PER_S * 1e3
+    bytes_ms = moved / HW.hbm_bw * 1e3
+    flops_ms = 2 * slots * FUSE / HW.f32_flops * 1e3
     return dict(bound_ms=max(bytes_ms, flops_ms),
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                 bytes=moved, flops_ms=flops_ms)
@@ -1591,14 +1917,30 @@ def main():
     counts["row1"] += mesh_launches["sorted"]
     counts["row1q"] += mesh_launches["sorted_q"]
     runs.update(mesh_solves)
-    phase("phase 7: out-of-core streaming")
-    xs.reset_launches()
-    stream = stream_path(plan, a, device)
-    stream["launches"] = dict(xs.LAUNCHES)
-    log(f"stream path launches per kernel: {stream['launches']}")
-    if stream["launches"]["sorted"] == 0:
-        raise AssertionError("row 1 must run on the streaming path")
-    counts["row1"] += stream["launches"]["sorted"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        phase("phase 7: out-of-core streaming")
+        xs.reset_launches()
+        stream, store = stream_path(plan, a, device, tmp)
+        stream["launches"] = dict(xs.LAUNCHES)
+        log(f"stream path launches per kernel: {stream['launches']}")
+        if stream["launches"]["sorted"] == 0:
+            raise AssertionError("row 1 must run on the streaming path")
+        counts["row1"] += stream["launches"]["sorted"]
+        phase("phase 8: the service")
+        xs.reset_launches()
+        serve, srv, vol_a = serve_path(plan, device, store, tmp)
+        serve["launches"] = dict(xs.LAUNCHES)
+        log(f"serve path launches per kernel: {serve['launches']}")
+        if serve["launches"]["sorted"] == 0 or \
+                serve["launches"]["sorted_q"] == 0:
+            raise AssertionError("rows 1 and 1q must both run on the "
+                                 "serve path")
+        counts["row1"] += serve["launches"]["sorted"]
+        counts["row1q"] += serve["launches"]["sorted_q"]
+        phase("phase 8: tuning and drift")
+        serve["tune"] = tune_path(plan, device, store, srv, vol_a)
+        del srv, vol_a, store
+        gc.collect()  # the served plans leave the card before phase 5
     # phase 5 before phase 4: a torch.profiler session leaves every later
     # launch slower on the host, which the chunked row 4 would measure
     phase("phase 5: times")
@@ -1625,6 +1967,7 @@ def main():
     kernels[0]["mesh"] = dict(checks=mesh_checks, tables=mesh_tables,
                               launches=mesh_launches, shards=mesh_shards)
     kernels[0]["stream"] = stream
+    kernels[0]["serve"] = serve
     phase("done")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -20,8 +20,10 @@ on its rank 0's device, split by rank into row chunks for the kernels.
 Without a topology the reconstructor has one rank on ``device``.
 
 The solve is timed by the ``recon/stage`` and ``recon/solve`` spans of
-``obs.trace``, and ``resil.inject``'s ``recon/solve`` site sees the
-solution before the non-finite check.
+``obs.trace``; with tracing on, a ``recon/exchange`` instant and the
+``comm_bytes_total`` / ``dma_issues_total`` counters carry its modeled
+traffic.  ``resil.inject``'s ``recon/solve`` site sees the solution
+before the non-finite check.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ from ..kernels.ops import (
     sort_segments_by_class,
     winmap_segments,
 )
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..obs.trace import span as obs_span
 from ..resil import inject
 from ..resil.errors import NonFiniteSolveError
@@ -103,6 +107,30 @@ class ReconConfig:
     # kept for the reference's field set; no effect on Hopper (see
     # kernels.ops.apply_operator)
     smem_budget: int | None = None
+
+    @classmethod
+    def tuned(cls, passport=None, *, tune_dir=None, **overrides):
+        """Build a config from a tuning passport (``repro_torch.tune``).
+
+        Resolution: an explicit ``passport`` wins; else the passport
+        for THIS machine's hardware fingerprint is looked up under
+        ``tune_dir`` (missing or unusable -> stock defaults, never an
+        error); ``overrides`` beat passport knobs either way.  Only the
+        knobs this dataclass owns are consumed (``precision``,
+        ``comm_mode``, ``wire``, ``fuse``, ``dma``) -- partition-level
+        knobs live in the passport for ``build_plan`` callers to apply.
+        """
+        if passport is None and tune_dir is not None:
+            from ..tune.passport import resolve_passport
+
+            passport = resolve_passport(tune_dir)
+        kw = {}
+        if passport is not None:
+            for field in ("precision", "comm_mode", "wire", "fuse", "dma"):
+                if field in passport.knobs:
+                    kw[field] = passport.knobs[field]
+        kw.update(overrides)
+        return cls(**kw)
 
 
 class Reconstructor:
@@ -584,6 +612,7 @@ class Reconstructor:
             with torch.no_grad():
                 x, res = self._by_group(solve, staged.y, self._upload(x0))
             sp.fence((x, res))  # the span ends when the device is done
+        self._emit_exchange(iters, staged.n_slices)
         x_nat = self.unpack_tomo(self._download(x)) / scale
         # the resilience guard: a blown-up solve (or an injected
         # nonfinite fault) surfaces as a typed error the caller can
@@ -599,3 +628,64 @@ class Reconstructor:
                 f"(precision={self.cfg.precision})"
             )
         return x_nat, self._download(res) / scale
+
+    def _emit_exchange(self, iters: int, n_slices: int):
+        """Annotate a finished solve with its modeled wire traffic.
+
+        Host spans do not time the exchanges inside the solve, so when
+        tracing is on a ``recon/exchange`` instant carries the *modeled*
+        per-link bytes of the whole solve (``launch.xct_perf.comm_volume``
+        per fused minibatch, x ``iters + 1`` operator applications, the
+        same pricing the autotuner and ``obs.drift`` use) and bumps the
+        ``comm_bytes_total{link=}`` / ``dma_issues_total`` counters.
+        """
+        tracer = obs_trace.get_tracer()
+        if not tracer.enabled:
+            return
+        per_mini = getattr(self, "_obs_traffic", None)
+        if per_mini is None:
+            from ..kernels.traffic import (
+                op_segments_per_stage,
+                spmm_traffic,
+            )
+            from ..launch.xct_perf import comm_volume
+
+            wire = comm_volume(
+                self.plan, self.cfg.comm_mode, self.cfg.fuse,
+                self.policy.comm_bytes, self.topology,
+                wire=self.cfg.wire,
+            )
+            issues = 0.0
+            for op in (self.plan.proj, self.plan.back):
+                _, b, s, r, k = op.inds.shape
+                issues += spmm_traffic(
+                    b, s, r, k, op.winmap.shape[-1], self.cfg.fuse,
+                    storage_bytes=self.policy.storage_bytes,
+                    vals_bytes=self.policy.vals_bytes,
+                    staging=self.cfg.staging,
+                    dma=self.cfg.dma,
+                    segments_per_stage=op_segments_per_stage(op),
+                )["dma_issues"]
+            per_mini = self._obs_traffic = {
+                "ici": wire["ici"], "dci": wire["dci"],
+                "dma_issues": issues,
+            }
+        minis = n_slices // (self.n_batch * self.cfg.fuse)
+        apps = iters + 1  # CGNR: initial A/A^T pair + one per iteration
+        scale = minis * apps
+        tracer.instant(
+            "recon/exchange",
+            ici_bytes=per_mini["ici"] * scale,
+            dci_bytes=per_mini["dci"] * scale,
+            iters=iters,
+            slices=n_slices,
+        )
+        obs_metrics.inc(
+            "comm_bytes_total", per_mini["ici"] * scale, link="ici"
+        )
+        obs_metrics.inc(
+            "comm_bytes_total", per_mini["dci"] * scale, link="dci"
+        )
+        obs_metrics.inc(
+            "dma_issues_total", per_mini["dma_issues"] * scale, op="spmm"
+        )

@@ -2,12 +2,12 @@
 copy of the reference's ``kernels/traffic.py``).
 
 It counts what one fused minibatch moves and computes: bytes, FLOPs and
-copy issues, a model of the work that holds for any device.  It prices
-no time of its own: :func:`dma_issue_seconds` takes the per-copy issue
-overhead as an argument, and :data:`PER_COPY_OVERHEAD_S` is ``None``
-until a Hopper measurement gives it a value.  The stream scheduler
-(``stream.scheduler.suggest_slab``) reads it for the modeled traffic of
-one slab.
+copy issues, a model of the work that holds for any device.  The one
+time it carries is :data:`PER_COPY_OVERHEAD_S`, the per-copy issue
+overhead measured on the H100 (``tune.calibrate``), which
+:func:`dma_issue_seconds` multiplies by the modeled issues.  The stream
+scheduler (``stream.scheduler.suggest_slab``) reads it for the modeled
+traffic of one slab.
 
 Per minibatch of ``F`` fused slices, one device's shard moves:
 
@@ -105,11 +105,14 @@ __all__ = [
 STAGINGS = ("fused", "gather")
 DMA_MODES = ("coalesced", "per_row")
 
-# Fixed cost of issuing one async copy on the card.  The reference's
-# figure was priced for another device's copy engine; this one waits for
-# a measurement of Hopper's copy issue (ROADMAP.md queue 1, tune/), so
-# callers pass their own to dma_issue_seconds.
-PER_COPY_OVERHEAD_S = None
+# Seconds per modeled copy issue of the window staging, as throughput over
+# the whole card: the median of seven runs of
+# tune.calibrate.calibrate_per_copy_overhead (B=4096 row-blocks, F=8
+# half-precision rows, one 16-byte cp.async a length-1 segment against
+# one cp.async.bulk a stage) on an NVIDIA H100 80GB HBM3 at a power limit
+# of 700.00 W.  The reference's 1e-7 s was priced for another device's
+# copy engine.
+PER_COPY_OVERHEAD_S = 3.22e-11
 
 
 def staged_window_bytes(s: int, buf: int, f: int,
@@ -186,12 +189,12 @@ def dma_issue_seconds(
     """Seconds to move ``bytes_`` in ``issues`` async copies:
     ``issues x per_copy_overhead + bytes / bandwidth``.  The first term
     is what run-length coalescing shrinks (issues: B*S*BUF per-row ->
-    B*S*NSEG) without touching the second.  Both rates are the caller's:
-    the port has no measured per-copy overhead (``PER_COPY_OVERHEAD_S``
-    is ``None``)."""
+    B*S*NSEG) without touching the second.  Both rates are the caller's
+    (the H100's: ``PER_COPY_OVERHEAD_S`` and ``launch.hardware.HW``); an
+    overhead of ``None`` (a device not measured) raises."""
     if per_copy_overhead is None:
         raise ValueError(
-            "per_copy_overhead is not measured on this device yet; pass "
+            "per_copy_overhead is not measured on this device; pass "
             "one (seconds per issued copy)"
         )
     return float(issues) * per_copy_overhead + float(bytes_) / bandwidth
@@ -211,6 +214,7 @@ def spmm_traffic(
     dma: str = "coalesced",
     segments_per_stage: float | None = None,
     slot_order: str = "runs",
+    interpret_timed: bool = False,
 ) -> dict:
     """Device-memory bytes + FLOPs of one fused-minibatch SpMM over one
     shard.
@@ -232,7 +236,29 @@ def spmm_traffic(
     adds the int32 per-(block, stage) dequantization-scale table to the
     descriptor stream (4 B per stage -- the scales ride scalar
     prefetch, but they still cross device memory once).
+
+    ``interpret_timed=True`` declares that any wall-clock numbers the
+    caller plans to compare against this model were taken off the card
+    (the plain PyTorch version on the CPU, tagged
+    ``"measured-interpret"`` as the reference tags its Pallas interpret
+    mode), where no copy is issued at all and a per-copy cost is an
+    artifact of the emulation.  The model warns once per call: do not
+    RANK dma modes on such timings -- :func:`dma_issue_seconds` over the
+    modeled issue counts is the authority (the autotuner's modeled tier
+    does exactly that).
     """
+    if interpret_timed:
+        import warnings
+
+        warnings.warn(
+            "spmm_traffic: timings taken off the card (interpret: the "
+            "plain PyTorch version) issue no async copies -- per-copy cost "
+            "there is an emulation artifact.  Do not rank dma modes on "
+            "those timings; use dma_issue_seconds over the modeled issue "
+            "counts instead.",
+            RuntimeWarning,
+            stacklevel=2,
+        )
     if staging not in STAGINGS:
         raise ValueError(
             f"unknown staging {staging!r}; one of {STAGINGS}"

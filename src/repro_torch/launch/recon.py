@@ -8,8 +8,12 @@
 ``("data", "model")``, the data axis ``"model"``: the first P cards, or P
 ranks sharing the CPU under ``--device cpu``; ``--comm`` picks the
 partial-data reduction among them.  ``--trace OUT.json`` records the
-``repro_torch.obs`` spans of the run and writes them as a Chrome
-trace-event JSON (load it at ui.perfetto.dev).
+``repro_torch.obs`` spans of the run, writes them as a Chrome
+trace-event JSON (load it at ui.perfetto.dev) and prints the
+modeled-vs-measured drift report (``obs.drift``, priced with the H100's
+rates).  ``--tune-dir DIR`` applies this machine's tuning passport
+(``repro_torch.tune``, by hardware fingerprint) to every knob the
+command line left at its default.
 
 Out-of-core streaming (``repro_torch.stream``): simulate the sinogram
 straight into an on-disk slab store, then drain it through the solver
@@ -35,18 +39,14 @@ from ..core.partition import PartitionConfig, build_plan, default_socket
 from ..core.recon import ReconConfig, Reconstructor, resolve_device
 from ..data.phantom import phantom_slices, simulate_measurements
 from ..dist import Topology
+from ..obs import drift as obs_drift
 from ..obs import export as obs_export
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from ..tune.passport import resolve_passport
 from .mesh import make_mesh
 
 MODES = ("direct", "rs", "hier", "sparse", "hier-sparse")
-
-# options of the reference driver that the port does not run yet
-_NOT_PORTED = {
-    "tune_dir": "--tune-dir (tuning passports): ROADMAP.md queue 1, "
-                "tuning/observability hooks",
-}
 
 
 def main(argv=None):
@@ -100,39 +100,64 @@ def main(argv=None):
     )
     ap.add_argument(
         "--trace", default=None, metavar="OUT.json",
-        help="record repro_torch.obs spans and write a Chrome trace-event "
-             "JSON (load it at ui.perfetto.dev)",
+        help="record repro_torch.obs spans, write a Chrome trace-event "
+             "JSON (load it at ui.perfetto.dev) and print the "
+             "modeled-vs-measured drift report",
     )
-    ap.add_argument("--tune-dir", default=None, help="not ported yet")
+    ap.add_argument(
+        "--tune-dir", default=None,
+        help="directory of repro_torch.tune passports; this machine's "
+             "passport (by hardware fingerprint) fills every knob the "
+             "command line left at its default",
+    )
     args = ap.parse_args(argv)
 
-    for flag, why in _NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"{why} is not ported yet")
     if args.p_data < 1:
         ap.error("--p-data must be at least 1")
+    # Passport knobs apply ONLY where the flag still holds its parser
+    # default: an explicit command-line choice always beats the tuner.
+    tuned: dict = {}
+    if args.tune_dir:
+        pp = resolve_passport(args.tune_dir)
+        if pp is not None:
+            tuned = dict(pp.knobs)
+            for flag in ("fuse", "precision", "comm", "dma"):
+                knob = {"comm": "comm_mode"}.get(flag, flag)
+                if knob in tuned and \
+                        getattr(args, flag) == ap.get_default(flag):
+                    setattr(args, flag, tuned[knob])
+            print(f"tuning passport {pp.fingerprint} applied "
+                  f"({args.tune_dir})")
+    geo, a, rec = _bind(args, tuned)
     if not args.trace:
-        return _run(args)
+        return _solve(args, geo, a, rec)
     old = obs_trace.get_tracer()
     tracer = obs_trace.enable()
     try:
-        return _run(args)
+        return _solve(args, geo, a, rec)
     finally:
         # written for a partial drain (exit code 3) too, as the reference
         # writes it before it exits
         obs_trace.set_tracer(old)
-        obs_export.write_chrome_trace(args.trace, tracer)
-        print(f"trace written to {args.trace} (load at ui.perfetto.dev)")
-        # the reference also prints the modeled-vs-measured drift report;
-        # it waits for obs/drift.py and the H100 hardware table
-        # (ROADMAP.md queue 1)
-        print("drift report: not ported yet (obs/drift.py, ROADMAP.md "
-              "queue 1)")
+        _finish_trace(args, tracer, rec)
 
 
-def _run(args):
-    """Build, bind and solve as the arguments say."""
+def _finish_trace(args, tracer, rec):
+    """--trace epilogue: write the Perfetto JSON + print drift."""
+    obs_export.write_chrome_trace(args.trace, tracer)
+    print(f"trace written to {args.trace} (load at ui.perfetto.dev)")
+    try:
+        report = obs_drift.drift_report(
+            tracer, rec=rec, iters=args.iters, n_slices=args.slices,
+        )
+        print(report.render())
+    except ValueError as e:  # e.g. odd slice counts -- trace still lands
+        print(f"drift report unavailable: {e}")
 
+
+def _bind(args, tuned):
+    """Build the plan and bind it as the arguments (and the passport's
+    plan-level knobs) say; returns ``(geo, a, rec)``."""
     # devices first, before minutes of host build: a missing card or too
     # few cards raise here and never move the run to the CPU
     device = resolve_device(args.device)
@@ -147,24 +172,38 @@ def _run(args):
     geo = XCTGeometry(n=args.n, n_angles=args.angles)
     print(f"building system matrix ({geo.n_rays} rays x {geo.n_vox} vox)")
     a = build_system_matrix(geo)
-    # the reference's tile 8, R=K=32, "runs" slot order, and the
-    # socket-aware chunk layout for the one P-wide level
+    # the reference's tile 8, R=K=32, "runs" slot order unless the
+    # passport tuned them, and the socket-aware chunk layout for the one
+    # P-wide level
     plan = build_plan(
         geo,
         PartitionConfig(
             n_data=args.p_data,
+            tile=tuned.get("tile", 8),
+            rows_per_block=tuned.get("rows_per_block", 32),
+            nnz_per_stage=tuned.get("nnz_per_stage", 32),
             socket=default_socket(args.p_data, args.p_data),
+            slot_order=tuned.get("slot_order", "runs"),
         ),
         a=a,
     )
+    # the wire knob only exists on the hier-sparse ladder; drop it if a
+    # command-line --comm override moved off the mode the passport tuned
+    wire = tuned.get("wire", "native") if args.comm == "hier-sparse" \
+        else "native"
     cfg = ReconConfig(
         precision=args.precision, comm_mode=args.comm, fuse=args.fuse,
-        dma=args.dma,
+        dma=args.dma, wire=wire,
     )
     if topology is None:
         rec = Reconstructor(plan, cfg=cfg, device=device)
     else:
         rec = Reconstructor(plan, cfg=cfg, topology=topology)
+    return geo, a, rec
+
+
+def _solve(args, geo, a, rec):
+    """Solve in memory, or stream with ``--stream``."""
     if args.stream:
         return _run_streaming(args, geo, a, rec)
 

@@ -1,5 +1,5 @@
 """repro_torch.obs: unified tracing + metrics spine (the port's copy of
-the reference's ``repro.obs``, without ``drift``).
+the reference's ``repro.obs``).
 
 * :mod:`~repro_torch.obs.trace` -- nestable, thread-aware spans on one
   monotonic clock (``with span("recon/solve", iters=30): ...``);
@@ -8,10 +8,11 @@ the reference's ``repro.obs``, without ``drift``).
   a Prometheus text exposition.
 * :mod:`~repro_torch.obs.export` -- Chrome trace-event JSON (Perfetto) +
   schema validation against the packaged ``chrome_trace.schema.json``.
-
-The modeled-vs-measured drift report waits for the H100 hardware table
-and the comm-volume model it joins spans against (ROADMAP.md queue 1).
+* :mod:`~repro_torch.obs.drift` -- modeled-vs-measured per-phase drift
+  report joining span totals against the traffic / comm-volume models,
+  priced with the H100's rates.
 """
+from .drift import drift_report, measured_phases, modeled_phases
 from .export import (
     chrome_trace,
     load_schema,
@@ -46,4 +47,7 @@ __all__ = [
     "write_chrome_trace",
     "load_schema",
     "validate_chrome_trace",
+    "drift_report",
+    "measured_phases",
+    "modeled_phases",
 ]

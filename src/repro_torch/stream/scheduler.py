@@ -161,6 +161,7 @@ def suggest_slab(
     *,
     n_slices: int | None = None,
     overlap: bool = True,
+    passport=None,
 ) -> SlabPlan:
     """Pick the largest budget-fitting ``Y_slab`` for a partition plan.
 
@@ -173,9 +174,11 @@ def suggest_slab(
       mem_budget: total bytes available for operator + in-flight slabs.
       n_slices: optional total Y; caps the slab at the whole volume.
       overlap: double-buffered host staging (2x the slab staging bytes).
-
-    (The reference also takes a tuning ``passport=`` whose ``y_slab``
-    knob caps the slab; it comes back with ``tune/``.)
+      passport: optional ``repro_torch.tune.TuningPassport``; its tuned
+        ``y_slab`` knob *caps* the granted slab (never raises it past
+        what the budget allows -- the budget stays the authority,
+        the passport only stops over-allocation the tuner found
+        unprofitable).
 
     Raises ``ValueError`` when even one granule of slices overflows the
     budget (the operator alone may already be too large).
@@ -215,6 +218,10 @@ def suggest_slab(
         )
     if n_slices is not None:
         y_slab = min(y_slab, (n_slices // granule) * granule or granule)
+    if passport is not None:
+        cap = passport.knobs.get("y_slab")
+        if cap:
+            y_slab = min(y_slab, max(granule, cap // granule * granule))
     hbm = flops = 0.0
     smem = 0
     minis = y_slab // granule  # fused minibatches per batch member

@@ -39,6 +39,8 @@ SWEEP = [
     # an odd BUF: most stages' winmap rows start off a 16-byte boundary,
     # and no warp instruction of row 3 covers a window's rows evenly
     (2, 5, 16, 16, 37, 128, 16),
+    # R=K=64: the autotuner's other block shape (repro_torch.tune)
+    (2, 3, 64, 64, 96, 256, 16),
 ]
 # R=32 with fuse=64: wider than the first kernel design took (R*F <= 1024)
 WIDE = (3, 5, 32, 16, 48, 128, 64)
@@ -738,3 +740,119 @@ def test_cuda_stage_sino_uploads_on_its_own_stream(cuda):
     assert staged.y.device.type == "cuda"
     np.testing.assert_array_equal(staged.y.cpu().numpy(),
                                   rec.pack_sino(sino) * staged.scale)
+
+
+def _serve_spec(sino, **kw):
+    """A job on ``_small_plan``'s geometry and partition, mixed, fuse 2."""
+    from repro_torch.core.geometry import XCTGeometry
+    from repro_torch.core.partition import PartitionConfig
+    from repro_torch.core.recon import ReconConfig
+    from repro_torch.serve import JobSpec
+
+    kw.setdefault("iters", 5)
+    kw.setdefault("y_slab", 4)
+    kw.setdefault("rcfg", ReconConfig(precision="mixed", fuse=2))
+    return JobSpec(
+        geo=XCTGeometry(n=32, n_angles=48), sino=sino,
+        pcfg=PartitionConfig(tile=4, rows_per_block=16, nnz_per_stage=16),
+        **kw)
+
+
+@pytest.mark.gpu
+def test_cuda_served_job_equals_in_memory_slabs(cuda, tmp_path):
+    """Two jobs batched through a ``ReconServer`` on the card: each slab of
+    each volume equals the in-memory solve of its 4 slices bit for bit,
+    whatever it was batched with, and row 1 ran for every solve."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.serve import ReconServer
+
+    plan, sino = _small_plan()
+    rec = Reconstructor(plan, ReconConfig(precision="mixed", fuse=2))
+    srv = ReconServer(2 << 30, workdir=str(tmp_path))
+    assert srv.device == cuda
+    txs.reset_launches()
+    jobs = [srv.submit(_serve_spec(s)) for s in (sino, sino[:, ::-1].copy())]
+    assert srv.drain() == 2 and srv.cache.stats()["builds"] == 1
+    assert txs.LAUNCHES["sorted"] == 2 * 2 * 2 * (5 + 1) * 2
+    for job in jobs:
+        assert job.status == "done"
+        for j0, j1 in job.volume.slabs():
+            x, r = rec.reconstruct(job.spec.read_slab(j0, j1), iters=5)
+            np.testing.assert_array_equal(job.volume.read(j0, j1), x)
+            np.testing.assert_array_equal(job.resnorms[:, j0:j1], r)
+
+
+@pytest.mark.gpu
+def test_cuda_background_server(cuda, tmp_path):
+    """The scheduler thread solves on the card, with the prefetch thread
+    staging the next slab: the volume equals the synchronous server's."""
+    from repro_torch.serve import ReconServer
+
+    _, sino = _small_plan()
+    sync = ReconServer(2 << 30, workdir=str(tmp_path / "sync"))
+    want = sync.submit(_serve_spec(sino))
+    sync.drain()
+    srv = ReconServer(2 << 30, workdir=str(tmp_path / "bg"))
+    srv.start()
+    try:
+        jobs = [srv.submit(_serve_spec(sino)) for _ in range(2)]
+        for job in jobs:
+            assert job.wait(timeout=300) and job.status == "done"
+    finally:
+        srv.stop()
+    assert srv._thread is None
+    for job in jobs:
+        np.testing.assert_array_equal(job.volume.to_array(),
+                                      want.volume.to_array())
+
+
+@pytest.mark.gpu
+def test_cuda_plan_cache_eviction_frees_the_card(cuda, tmp_path):
+    """A plan cache bounded to one entry: a second key (the same operator,
+    another config) evicts the first, and the card holds one operator
+    afterwards, not two: nothing but the cache held the evicted
+    ``Reconstructor``.  Emptying the cache returns the card to where it
+    started."""
+    from repro_torch.core.recon import ReconConfig
+    from repro_torch.serve import ReconServer
+
+    def allocated():
+        torch.cuda.synchronize(cuda)
+        torch.empty(1, device=cuda)  # lets the allocator retire frees
+        return torch.cuda.memory_allocated(cuda)
+
+    _, sino = _small_plan()
+    srv = ReconServer(2 << 30, workdir=str(tmp_path), cache_bytes=1)
+    base = allocated()
+    first = srv.submit(_serve_spec(sino))
+    srv.drain()
+    one = allocated() - base
+    assert first.status == "done" and one > 0
+    second = srv.submit(_serve_spec(
+        sino, rcfg=ReconConfig(precision="mixed", fuse=2, overlap=False)))
+    assert second.plan_key != first.plan_key
+    srv.drain()
+    assert second.status == "done"
+    st = srv.cache.stats()
+    assert (st["builds"], st["evictions"], st["entries"]) == (2, 1, 1)
+    assert abs(allocated() - base - one) < one // 2
+    srv.cache._entries.clear()
+    assert allocated() == base
+
+
+@pytest.mark.gpu
+def test_cuda_calibrate_per_copy_overhead(cuda):
+    """On the card the calibration times row 1 with CUDA events: a finite,
+    positive overhead tagged ``measured``, the strided table issuing far
+    more copies than the contiguous one."""
+    import math
+
+    from repro_torch.tune import calibrate_per_copy_overhead
+
+    txs.reset_launches()
+    cal = calibrate_per_copy_overhead()
+    assert cal["overhead_source"] == "measured"
+    assert math.isfinite(cal["per_copy_overhead_s"])
+    assert cal["per_copy_overhead_s"] > 0
+    assert cal["strided_issues"] > 100 * cal["contig_issues"]
+    assert txs.LAUNCHES["sorted"] > 0

@@ -62,9 +62,10 @@ def test_traffic_helpers_and_the_unpriced_copy_overhead():
             jtraffic.staged_window_bytes(3, buf, 16, 2)
     with pytest.raises(ValueError, match="slot_order"):
         ttraffic.est_segments_per_stage(8, "bogus")
-    # the reference's 1e-7 s was priced for another copy engine: the port
-    # carries no figure and asks the caller for one
-    assert ttraffic.PER_COPY_OVERHEAD_S is None
+    # the reference's 1e-7 s was priced for another copy engine: the
+    # port's figure is the H100's, measured by tune.calibrate, and an
+    # overhead of None (a device not measured) still raises
+    assert ttraffic.PER_COPY_OVERHEAD_S == 3.22e-11
     with pytest.raises(ValueError, match="not measured"):
         ttraffic.dma_issue_seconds(10, 100.0, 1e9, None)
     assert ttraffic.dma_issue_seconds(10, 100.0, 1e9, 2e-7) == \
