@@ -78,6 +78,24 @@ Phases, each fatal on failure:
    card's fingerprint, one A job whose slab the passport caps, and the
    CLI with ``--tune-dir`` and ``--trace`` printing the drift report.
 
+9. the dry run (``launch.dryrun``, ``Reconstructor(abstract=True)``):
+   (a) phase 3's plan (mixed, ``fuse=16``, the kernel path) lowered on
+   fake tensors with ``lower_cg`` for 2 iterations, during which row 1
+   must launch no time; a real reconstructor bound on the card, whose
+   tensors' bytes must equal the abstract argument bytes, then the same
+   CG function on real inputs, its ``max_memory_allocated`` printed
+   beside the abstract peak, and rows 1 and 4 through their wrappers
+   (direct launches) against the custom ops registered for the trace;
+   (b) the same for phase 6's
+   four-rank plan, a fake 2x2 mesh against the card's 2x2 mesh, rank by
+   rank; (c) on the host: the §Perf sweep's rows, modeled with the
+   H100's rates and printed on their own lines (kept out of the kernels
+   line), and the dry-run cell of every Table II dataset on one pod and of xct-brain on
+   two, on the oracle's path (the reference's cell) and the kernel path,
+   each in a process of its own started before (a): the busiest rank's
+   and rank 0's bytes against the card's memory, and the traced bytes
+   between devices beside the modeled ones.
+
 At f32/f32 row 1 must equal its plain version bit for bit (phase 2):
 both round the step once, as one fused multiply-add.
 
@@ -88,6 +106,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1142,8 +1161,10 @@ def tune_path(plan, device, store, srv, vol_a, fuse=FUSE, iters=ITERS):
         f"{base.get('total_seconds', float('nan')):.5g} s (issue "
         f"{base.get('dma_issue_seconds', float('nan')):.4g}, memory "
         f"{base.get('hbm_seconds', float('nan')):.4g})")
+    # the objective is modeled seconds: on the log line above, not in the
+    # kernels line
     out = dict(calibration=cal, tune_s=tune_s, knobs=passport.knobs,
-               objective=obj, hardware=describe_hardware())
+               hardware=describe_hardware())
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tdir:
         path = save_passport(passport, tdir)
         found = resolve_passport(tdir)
@@ -1464,6 +1485,228 @@ def mesh_path(plan1, plan4, a, device, runs_p1, slices=SLICES, fuse=FUSE,
             [serial, rec], sino, iters, (x, res), key)
         del rec, serial
     return checks, solves
+
+
+DRY_ITERS = 2  # the reference's dry-run CG iterations
+# phase 9c's cells: (dataset, multi_pod); every one on both paths
+DRY_CELLS = (("xct-shale", False), ("xct-chip", False),
+             ("xct-charcoal", False), ("xct-brain", False),
+             ("xct-brain", True))
+
+
+def bound_bytes(rec):
+    """Per rank, the bytes of the tensors ``rec`` bound on the card: each
+    storage's ``nbytes`` (a scatter table's passes are three tensors)."""
+    from repro_torch.dist.collectives import ScatterPasses
+
+    out = []
+    for arrs in rec._arrays:
+        tensors = []
+        for t in arrs.values():
+            tensors += ([t.first, t.dst, t.src]
+                        if isinstance(t, ScatterPasses) else [t])
+        out.append(sum({id(t.untyped_storage()): t.untyped_storage().nbytes()
+                        for t in tensors}.values()))
+    return out
+
+
+def dispatch_cost(arrs, cols, device, reps=50):
+    """The wrappers, which launch directly on real tensors, against the
+    custom ops registered for the abstract trace, called on the same real
+    tensors, in turns: row 1 on the proj shard of ``arrs`` (mixed) and
+    row 4 on one chunk of it as ``apply_operator(staging="gather")``
+    launches it.  CUDA-event ms per call and host microseconds per call
+    (the enqueue).  The launches are not the main path's."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import xct_spmm as xs
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((cols, FUSE), generator=gen).to(device, torch.float16)
+    inds, vals, winmap = (arrs[f"proj_{k}"] for k in ("inds", "vals",
+                                                      "winmap"))
+    segs, off = arrs["proj_winsegs"], arrs["proj_segoff"]
+    b, s, _, _ = inds.shape
+    bpc = ops._gather_blocks_per_call(b, s, winmap.shape[-1], FUSE, 2)
+    window = x[winmap[:bpc].long()]
+    f32 = torch.float32
+    ops_ = torch.ops.repro_torch
+    ways = {
+        "row1 custom op": lambda: ops_.spmm_block_ell(
+            inds, vals, winmap, x, f32, segs, off, None),
+        "row1 wrapper": lambda: xs.spmm_block_ell(
+            inds, vals, winmap, x, compute_dtype=f32, winsegs=segs,
+            segoff=off),
+        "row4 chunk custom op": lambda: ops_.spmm_block_ell_staged(
+            inds[:bpc], vals[:bpc], window, f32),
+        "row4 chunk wrapper": lambda: xs.spmm_block_ell_staged(
+            inds[:bpc], vals[:bpc], window, compute_dtype=f32),
+    }
+    out = {k: {"ms": [], "host_us": []} for k in ways}
+    for row, n in (("row1", reps), ("row4 chunk", 4 * reps)):
+        for how in ("custom op", "wrapper", "wrapper", "custom op"):
+            name = f"{row} {how}"
+            fn = ways[name]
+            fn()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                fn()
+            host = (time.perf_counter() - t0) / n * 1e6
+            end.record()
+            torch.cuda.synchronize()
+            out[name]["ms"].append(start.elapsed_time(end) / n)
+            out[name]["host_us"].append(host)
+    log(f"dispatch (row 4 chunk: {bpc} of {b} row-blocks): " + " | ".join(
+        f"{k}: " + ", ".join(f"{m:.4f}" for m in v["ms"]) + " ms, host "
+        + ", ".join(f"{h:.1f}" for h in v["host_us"]) + " us a call"
+        for k, v in out.items()))
+    return out
+
+
+def start_dry_cells(tmp):
+    """Phase 9c's cells, each a ``launch.dryrun`` process of its own on
+    the host, on the oracle's path (the reference's cell) and the kernel
+    path; they run beside phases 9a and 9b."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for ds, multi in DRY_CELLS:
+        for path in ("oracle", "kernel"):
+            out = Path(tmp) / f"{ds}_{int(multi)}_{path}.json"
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--xct", ds, "--out", str(out)]
+            cmd += ["--multi-pod"] if multi else []
+            cmd += ["--kernel-path"] if path == "kernel" else []
+            procs.append(((ds, multi, path), out, subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def dry_run(plan, plan4, a, device, procs):
+    """Phase 9: the dry run.  (a) phase 3's plan lowered on fake tensors
+    against a real reconstructor on the card; (b) phase 6's four-rank plan
+    on a fake 2x2 mesh against the card's 2x2 mesh; (c) the paper's
+    datasets at 256 and 512 devices on the host.  Returns the records and
+    row 1's real launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.data.phantom import phantom_slices, simulate_measurements
+    from repro_torch.dist import Topology
+    from repro_torch.kernels import xct_spmm as xs
+    from repro_torch.launch import xct_perf
+    from repro_torch.launch.mesh import make_fake_mesh
+
+    out, real_launches = {}, 0
+    total = torch.cuda.get_device_properties(device).total_memory
+    sino = simulate_measurements(a, phantom_slices(plan.geo.n, FUSE, seed=0),
+                                 seed=0)
+    cfg = ReconConfig(precision="mixed", comm_mode="hier", fuse=FUSE)
+    for key, p_plan in (("a", plan), ("b", plan4)):
+        if key == "a":
+            fake_kw, real_kw = {}, {"device": device}
+        else:
+            fake_kw = {"topology": Topology.from_mesh(
+                make_fake_mesh((2, 2), ("data", "model")),
+                data_axes=("model", "data"), batch_axes=())}
+            real_kw = {"topology": mesh_topology(device)}
+        xs.reset_launches()
+        t0 = time.perf_counter()
+        lowered = Reconstructor(p_plan, cfg, abstract=True,
+                                **fake_kw).lower_cg(FUSE, DRY_ITERS)
+        t_trace = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        traced = dict(xs.LAUNCHES, wrapper=xs.spmm_block_ell.launches)
+        if any(traced.values()):
+            raise AssertionError(f"9{key}: kernels launched under the "
+                                 f"trace: {traced}")
+        mem = lowered.memory_analysis()
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        real = Reconstructor(p_plan, cfg, **real_kw)
+        bound = bound_bytes(real)
+        fake_args = [int(v) for v in mem.per_rank["argument"]]
+        if fake_args != bound:
+            raise AssertionError(f"9{key}: abstract argument bytes "
+                                 f"{fake_args} != bound on the card {bound}")
+        staged = real.stage_sino(sino)
+        x0 = real._upload(np.zeros((real.tomo_pad, FUSE), np.float32))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            x, _ = real._solve(staged.y, x0, DRY_ITERS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"9{key}: the real solve is not finite")
+        real_launches += xs.LAUNCHES["sorted"]
+        solve_launches = dict(xs.LAUNCHES)
+        if key == "a":
+            out["dispatch"] = dispatch_cost(real._arrays[0],
+                                            p_plan.proj.cols_per_dev, device)
+        abstract_peak = int(sum(dict(zip(lowered.devices,
+                                         mem.per_rank["peak"])).values()))
+        rec = dict(trace_s=round(t_trace, 3), argument=bound,
+                   abstract_peak=abstract_peak, real_peak=int(peak),
+                   ratio=peak / abstract_peak, rank0=mem.rank0,
+                   launches=solve_launches,
+                   collectives=lowered.collectives())
+        log(f"dry run 9{key}: {len(bound)} rank(s), hier, {FUSE} slices, "
+            f"{DRY_ITERS} iters: trace {t_trace:.2f} s, no launch | "
+            f"argument bytes {bound} == bound on the card | peak "
+            f"max_memory_allocated {peak} against abstract {abstract_peak}"
+            f" (sum over the fake devices): ratio {peak / abstract_peak:.4f}"
+            f" | rank 0 {mem.rank0} | real solve launches row 1 "
+            f"{solve_launches['sorted']}")
+        out[key] = rec
+        del real, staged, x0, x
+    out["a"]["in_range"] = 0.8 <= out["a"]["ratio"] <= 1.25
+    rows = xct_perf.sweep()
+    # modeled from the datasheet rates: printed, kept out of the kernels line
+    log("sweep (xct-brain, 512 devices, H100 rates, 30 iterations, "
+        "modeled):\n" + xct_perf.table(rows))
+    cells = {}
+    for (ds, multi, path), path_json, proc in procs:
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"9c {ds} {path}: exit {proc.returncode}"
+                                 f"\n{err[-2000:]}")
+        rec = json.loads(path_json.read_text())[0]
+        if rec["status"] != "ok":
+            raise AssertionError(f"9c {ds} {path}: {rec['status']}")
+        mem, coll, an = rec["memory"], rec["collectives_traced"], \
+            rec["analytic"]
+        tag = f"{ds}{' 2 pods' if multi else ''} {path}"
+        busiest = mem["peak_bytes"]
+        fits = busiest <= total
+        log(f"dry run 9c {tag}: p_data {rec['p_data']} {rec['shape']} trace "
+            f"{rec['compile_s']} s | busiest rank {mem['rank']} "
+            f"{busiest} B, rank 0 {rec['rank0_bytes']} B (argument "
+            f"{mem['rank0']['argument']}, input {mem['rank0']['input']}, "
+            f"temp {mem['rank0']['temp']}), every other rank at most "
+            f"{mem['peak_others']} B, against total_memory {total} B: "
+            f"{'fits' if fits else 'does NOT fit'} | traced per rank ici "
+            f"{coll['ici_bytes']:.6g} dci {coll['dci_bytes']:.6g} B (by "
+            "kind, ici/dci: " + ", ".join(
+                f"{k} {v['ici_bytes']:.6g}/{v['dci_bytes']:.6g}"
+                for k, v in coll["by_kind"].items())
+            + f") against modeled ici_dev {an['ici_dev']:.6g} dci_dev "
+            f"{an['dci_dev']:.6g} B; rank 0 sent {coll['rank0_sent']} B")
+        cells[tag] = dict(
+            p_data=rec["p_data"], shape=rec["shape"],
+            trace_s=rec["compile_s"], busiest=busiest,
+            busiest_rank=mem["rank"], rank0=mem["rank0"],
+            peak_others=mem["peak_others"], fits=fits,
+            traced_ici=coll["ici_bytes"], traced_dci=coll["dci_bytes"],
+            by_kind=coll["by_kind"], card_bytes=total)
+    out["cells"] = cells
+    return out, real_launches
 
 
 def dev_us(e):
@@ -1955,6 +2198,19 @@ def main():
             topology=mesh_topology(device), rows=16,
             comm_mode="hier-sparse", overlap=overlap,
         )
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as tmp:
+        phase("phase 9: the dry run")
+        procs = start_dry_cells(tmp)
+        try:
+            dry, dry_launches = dry_run(plan, plan4, a, device, procs)
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    if dry_launches == 0:
+        raise AssertionError("row 1 must run in phase 9's real solves")
+    counts["row1"] += dry_launches
     kernels = []
     for key, name, replaces in KERNELS:
         kernels.append(entry(
@@ -1968,6 +2224,7 @@ def main():
                               launches=mesh_launches, shards=mesh_shards)
     kernels[0]["stream"] = stream
     kernels[0]["serve"] = serve
+    kernels[0]["dry_run"] = dry
     phase("done")
     log(json.dumps({"kernels": kernels}))
     log(card)

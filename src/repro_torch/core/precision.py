@@ -32,6 +32,8 @@ import math
 
 import torch
 
+from ..placement import copy_kind
+
 __all__ = [
     "Precision",
     "POLICIES",
@@ -176,6 +178,7 @@ def _listed(x):
     return (list(x) if many else [x]), many
 
 
+@copy_kind("pmax")
 def _group_factor(xs, local_max, target: float) -> list:
     """The one power-of-two factor of the group's max-norm, on each rank's
     device.  The ranks' maxima reduce as the reference's ``pmax`` does;

@@ -50,7 +50,14 @@ from ..obs import trace as obs_trace
 from ..obs.trace import span as obs_span
 from ..resil import inject
 from ..resil.errors import NonFiniteSolveError
-from .partition import Plan, build_hier_sparse_exchange, build_sparse_exchange
+from ..placement import FakeDevice, copy_kind, placeholder
+from .lowering import FakeTrace, LoweredCG, storage_bytes
+from .partition import (
+    Plan,
+    build_hier_sparse_exchange,
+    build_sparse_exchange,
+    estimate_hier_sparse,
+)
 from .pipeline import pipelined_apply, side_streams
 from .precision import (
     adaptive_scale_cols,
@@ -63,6 +70,34 @@ from .solver import cgnr
 __all__ = ["ReconConfig", "Reconstructor", "StagedSlab", "resolve_device"]
 
 _SPARSE_MODES = ("sparse", "hier-sparse")
+
+
+def _check_devices(mesh) -> None:
+    """A mesh a Reconstructor binds real tensors on: no placeholders, and
+    a card for every CUDA device (never a silent move to the CPU)."""
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for d in dict.fromkeys(mesh.devices.flat):
+        if isinstance(d, FakeDevice):
+            raise ValueError(
+                f"mesh device {d} is a placeholder "
+                "(launch.mesh.make_production_mesh / make_fake_mesh): only "
+                "Reconstructor(..., abstract=True) binds one"
+            )
+        if d.type == "cuda" and d.index >= found:
+            raise RuntimeError(
+                f"mesh device {d} asked for and {found} CUDA device(s) "
+                "available"
+            )
+
+
+def _bound_tensors(arrs: dict):
+    """The tensors of one rank's bound arrays (a scatter table's passes
+    are three)."""
+    for t in arrs.values():
+        if isinstance(t, ScatterPasses):
+            yield from (t.first, t.dst, t.src)
+        else:
+            yield t
 
 
 def resolve_device(device) -> torch.device:
@@ -147,12 +182,22 @@ class Reconstructor:
         batch axes' size product ``n_batch`` splits the slices.  Default:
         one rank on ``device`` (a 1x1 ``("data", "model")`` mesh with
         data axis ``"model"``, as the reference's default).
+      abstract: bind every operator array and exchange table as a fake
+        tensor (``core.lowering``) on a placeholder (``placement``) of its rank's CUDA
+        device -- the mesh's own placeholders
+        (``launch.mesh.make_production_mesh``) or one per real device --
+        and allocate nothing; such a reconstructor only
+        :meth:`lower_cg`.  An ``estimate_plan`` plan binds so, and a real
+        plan too.  A mesh of placeholders binds only so.
     """
 
     def __init__(self, plan: Plan, cfg: ReconConfig = ReconConfig(),
-                 device=None, *, topology: Topology | None = None):
+                 device=None, *, topology: Topology | None = None,
+                 abstract: bool = False):
         if topology is None:
-            mesh = DeviceMesh([[resolve_device(device)]], ("data", "model"))
+            dev = (placeholder("cuda" if device is None else device)
+                   if abstract else resolve_device(device))
+            mesh = DeviceMesh([[dev]], ("data", "model"))
             topology = Topology.from_mesh(
                 mesh, data_axes=("model",), batch_axes=("data",)
             )
@@ -195,29 +240,39 @@ class Reconstructor:
         self.topology = topology
         self.mesh = topology.mesh
         self.n_batch = topology.n_batch
+        self.abstract = abstract
+        if abstract:
+            self._trace = FakeTrace.for_mesh(self.mesh)
+            place, bind = placeholder, self._fake_arrays
+        else:
+            _check_devices(self.mesh)
+            place, bind = (lambda d: d), self._device_arrays
         # the data ranks' devices of each batch group; group 0's rank 0
         # holds the global vectors
-        self.groups = [topology.rank_devices(b) for b in range(self.n_batch)]
+        self.groups = [[place(d) for d in topology.rank_devices(b)]
+                       for b in range(self.n_batch)]
         self.devices = self.groups[0]
         self.device = self.devices[0]
         self.policy = get_policy(cfg.precision)
         self._rank_rows = None  # lazy inverse row permutation
         self._rank_cols = None
-        self._arrays = self._device_arrays(self.devices)
-        # the reduce phase's side CUDA streams, one per distinct device,
-        # shared by the ranks and batch groups on it
-        self._side = (side_streams(d for g in self.groups for d in g)
-                      if cfg.overlap else {})
-        # stage_sino's uploads: a stream of their own, so that an upload
-        # from another thread does not queue behind the solve's kernels
-        self._stage_stream = (torch.cuda.Stream(self.device)
-                              if self.device.type == "cuda" else None)
+        self._arrays = bind(self.devices)
         # another group's rank on a device of its own binds its own copy
         self._other = {
-            (p, d): self._device_arrays([d], [p])[0]
+            (p, d): bind([d], [p])[0]
             for group in self.groups[1:]
             for p, d in enumerate(group) if d != self.devices[p]
         }
+        # the reduce phase's side CUDA streams, one per distinct device,
+        # shared by the ranks and batch groups on it; an abstract trace
+        # issues everything in order on no stream
+        self._side = (side_streams(d for g in self.groups for d in g)
+                      if cfg.overlap and not abstract else {})
+        # stage_sino's uploads: a stream of their own, so that an upload
+        # from another thread does not queue behind the solve's kernels
+        self._stage_stream = (
+            torch.cuda.Stream(self.device)
+            if not abstract and self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ #
     # data movement helpers (host side)
@@ -350,6 +405,108 @@ class Reconstructor:
                         src=up(sp.src))
         return ranks
 
+    def _fake_arrays(self, devices, ranks_of=None) -> list:
+        """:meth:`_device_arrays` in fake tensors: the same keys, shapes
+        and dtypes on each rank's placeholder, nothing allocated.  On a
+        real plan the exchange tables and the scatter passes are built on
+        the host as the real bind builds them, and bound as fakes of their
+        shapes.  On an ``estimate_plan`` plan the tables take their
+        estimated shapes and each scatter table is one pass over its
+        slots, as the reference's one scatter op: the real pass count
+        depends on the tables' values."""
+        pol = self.policy
+        mode = self.cfg.comm_mode
+        topo = self.topology
+        fast = topo.levels[0].size if topo.levels else 1
+        n_slow = max(1, topo.n_data // fast)
+        ranks_of = list(range(len(devices))) if ranks_of is None else ranks_of
+        real = isinstance(self.plan.proj.row_map, np.ndarray)
+        self._socket_rows: dict = {}
+        # per operator: {key: (dtype, shape)} of the plain tensors, and
+        # {key: per-rank host ScatterPasses or (slots, rows)}
+        plain, passes = {}, {}
+        for name, op in (("proj", self.plan.proj), ("back", self.plan.back)):
+            _, b, s, r, k = op.inds.shape
+            buf = op.winmap.shape[-1]
+            if op.winsegs is not None and op.segoff is not None:
+                segs, off = op.winsegs.shape[1:], op.segoff.shape[1:]
+            else:  # plans carried without tables: build both now
+                segs, off = (t.shape[1:] for t in sort_segments_by_class(
+                    winmap_segments(op.winmap), buf))
+            vals = pol.vals_dtype if pol.quantized else pol.storage
+            plain[name] = {"inds": (torch.int16, (b, s, r, k)),
+                           "vals": (vals, (b, s, r, k)),
+                           "winmap": (torch.int32, (b, s, buf)),
+                           "winsegs": (torch.int32, segs),
+                           "segoff": (torch.int32, off)}
+            if pol.quantized:
+                plain[name]["vscale"] = (torch.int32, (b, s))
+            tables = {"row_map": (op.row_map, op.n_rows_pad)}
+            if mode == "sparse":
+                if real:
+                    send, recv, _ = build_sparse_exchange(op)
+                    send = send.shape[1:]
+                else:
+                    send = recv = (op.inds.shape[0],
+                                   int(getattr(op, "est_v", 8)))
+                plain[name]["send"] = (torch.int64, send)
+                tables["recv"] = (recv, op.rows_per_dev)
+            elif mode == "hier-sparse":
+                if real:
+                    smap, send, recv, w, _ = build_hier_sparse_exchange(
+                        op, fast)
+                    send = send.shape[1:]
+                else:
+                    w, v2 = estimate_hier_sparse(op, fast, n_slow)
+                    smap, send = (op.flat_rows,), (n_slow, v2)
+                    recv = send
+                self._socket_rows[name] = w
+                plain[name]["send"] = (torch.int64, send)
+                tables.update(smap=(smap, fast * w),
+                              recv=(recv, op.rows_per_dev))
+            passes[name] = {}
+            for key, (table, rows) in tables.items():
+                if real:
+                    passes[name][key] = [ScatterPasses.build(table[p], rows)
+                                         for p in ranks_of]
+                else:
+                    shape = table.shape[1:] if key == "row_map" else table
+                    passes[name][key] = (int(np.prod(shape)), rows)
+        trace = self._trace
+        ranks = [{} for _ in devices]
+        with trace.binding():
+            for i, (arrs, dev) in enumerate(zip(ranks, devices)):
+                def fake(shape, dtype, dev=dev):
+                    return trace.empty(shape, dtype, dev)
+
+                for name in ("proj", "back"):
+                    for key, (dtype, shape) in plain[name].items():
+                        arrs[f"{name}_{key}"] = fake(shape, dtype)
+                    for key, host in passes[name].items():
+                        if real:
+                            sp = host[i]
+                            shapes = (sp.first.shape, sp.dst.shape,
+                                      sp.src.shape)
+                            meta = dict(bounds=sp.bounds, rows=sp.rows,
+                                        trash=sp.trash)
+                        else:
+                            slots, rows = host
+                            shapes = ((slots,), (0,), (0,))
+                            meta = dict(bounds=(0,), rows=rows, trash=0)
+                        first, dst, src = (fake(sh, torch.int64)
+                                           for sh in shapes)
+                        arrs[f"{name}_{key}"] = ScatterPasses(
+                            first=first, dst=dst, src=src, **meta)
+        return ranks
+
+    def argument_bytes(self) -> list:
+        """Bytes of the tensors bound to each rank (each storage once),
+        in rank order, batch group major: the abstract argument bytes of
+        :meth:`lower_cg`, and on a real reconstructor what the ranks hold
+        on their devices."""
+        return [storage_bytes(_bound_tensors(a))
+                for g in range(self.n_batch) for a in self._group_arrays(g)]
+
     def _group_arrays(self, g: int) -> list:
         """Batch group ``g``'s per-rank arrays: group 0's wherever its rank
         shares group 0's device."""
@@ -385,12 +542,14 @@ class Reconstructor:
         streams = [self._side[d] for d in dict.fromkeys(devices)
                    if d in self._side]
 
+        @copy_kind("split")
         def split(x, rows):
             """Global [n * rows, F] -> per-rank row chunks on their
             devices (views when a rank shares rank 0's device)."""
             return [x[p * rows:(p + 1) * rows].to(d)
                     for p, d in enumerate(devices)]
 
+        @copy_kind("gather")
         def gather(chunks):
             """Owned chunks, rank order -> one tensor on rank 0's device."""
             if n_ranks == 1:
@@ -507,17 +666,29 @@ class Reconstructor:
         device.  ``fn`` returns one tensor or a tuple of them."""
         outs = []
         for g, group in enumerate(self.groups):
-            cols = [v.tensor_split(self.n_batch, dim=1)[g].to(group[0])
-                    for v in vectors]
+            with copy_kind("batch"):
+                cols = [v.tensor_split(self.n_batch, dim=1)[g].to(group[0])
+                        for v in vectors]
             outs.append(fn(g, *cols))
         if self.n_batch == 1:
             return outs[0]
-        if isinstance(outs[0], tuple):
-            return tuple(torch.cat([o[i].to(self.device) for o in outs], 1)
-                         for i in range(len(outs[0])))
-        return torch.cat([o.to(self.device) for o in outs], dim=1)
+        with copy_kind("batch"):
+            if isinstance(outs[0], tuple):
+                return tuple(
+                    torch.cat([o[i].to(self.device) for o in outs], 1)
+                    for i in range(len(outs[0])))
+            return torch.cat([o.to(self.device) for o in outs], dim=1)
+
+    def _concrete(self):
+        if self.abstract:
+            raise ValueError(
+                "an abstract Reconstructor holds fake tensors: it only "
+                "lowers (lower_cg)"
+            )
 
     def _apply(self, which: str, packed: np.ndarray) -> np.ndarray:
+        self._concrete()
+
         def one(g, x):
             proj, back, _ = self._make_ops(g)
             op = proj if which == "project" else back
@@ -549,6 +720,7 @@ class Reconstructor:
         waits for that stream alone, so the caller's timing is honest and
         the slab is on the device when it returns.
         """
+        self._concrete()
         self._check_slices(sino_nat.shape[1])
         with obs_span("recon/stage", slices=int(sino_nat.shape[1])):
             y = self.pack_sino(sino_nat)
@@ -596,21 +768,11 @@ class Reconstructor:
             if x0_nat is not None
             else np.zeros((self.tomo_pad, staged.n_slices), np.float32)
         )
-        pol = self.policy
-
-        def solve(g, y, x0):
-            proj, back, dot = self._make_ops(g)
-            x, res = cgnr(
-                proj, back, y, x0, iters, dot,
-                compute_dtype=pol.compute, storage_dtype=pol.storage,
-            )
-            return x.to(torch.float32), res.to(torch.float32)
-
         with obs_span(
             "recon/solve", iters=iters, slices=staged.n_slices
         ) as sp:
             with torch.no_grad():
-                x, res = self._by_group(solve, staged.y, self._upload(x0))
+                x, res = self._solve(staged.y, self._upload(x0), iters)
             sp.fence((x, res))  # the span ends when the device is done
         self._emit_exchange(iters, staged.n_slices)
         x_nat = self.unpack_tomo(self._download(x)) / scale
@@ -628,6 +790,67 @@ class Reconstructor:
                 f"(precision={self.cfg.precision})"
             )
         return x_nat, self._download(res) / scale
+
+    def _solve(self, y, x0, iters: int):
+        """The CG solve of every batch group on ``y`` and ``x0`` ([pad,
+        Y], global on rank 0's device): ``(x, resnorms)`` in f32."""
+        pol = self.policy
+
+        def solve(g, y, x0):
+            proj, back, dot = self._make_ops(g)
+            x, res = cgnr(
+                proj, back, y, x0, iters, dot,
+                compute_dtype=pol.compute, storage_dtype=pol.storage,
+            )
+            return x.to(torch.float32), res.to(torch.float32)
+
+        return self._by_group(solve, y, x0)
+
+    def lower_cg(self, y_slices: int, iters: int) -> LoweredCG:
+        """Dry-run the CG solve on fake tensors (``abstract=True``).
+
+        Runs :meth:`reconstruct`'s solve -- the same ``cgnr`` through
+        ``_make_ops``, rank loop, exchange and kernels' fakes -- on a fake
+        ``y [sino_pad, Y]`` and ``x0 [tomo_pad, Y]`` on rank 0's
+        placeholder, and returns the trace's :class:`LoweredCG`: the bound
+        bytes of every rank, the inputs, outputs and peak of every device,
+        and every copy between devices.  Nothing is allocated and no
+        kernel is launched.
+        """
+        if not self.abstract:
+            raise ValueError("lower_cg traces a Reconstructor(..., "
+                             "abstract=True)")
+        self._check_slices(y_slices)
+        trace = self._trace
+        ranks = [(d, a) for g in range(self.n_batch)
+                 for d, a in zip(self.groups[g], self._group_arrays(g))]
+        bound: dict = {}
+        for d, a in ranks:
+            bound.setdefault(d, {}).update(
+                {id(t.untyped_storage()): t for t in _bound_tensors(a)})
+        dev0 = self.device
+        with trace.running([t for ts in bound.values()
+                            for t in ts.values()]):
+            y = trace.empty((self.sino_pad, y_slices), torch.float32, dev0)
+            x0 = trace.empty((self.tomo_pad, y_slices), torch.float32, dev0)
+            inputs = {dev0: storage_bytes([y, x0])}
+            x, res = self._solve(y, x0, iters)
+            outputs = {dev0: storage_bytes([x, res])}
+            peak = dict(trace.peak)
+        notes = ["the CG vectors are global on rank 0's device, split and "
+                 "gathered around each operator application"]
+        if not isinstance(self.plan.proj.row_map, np.ndarray):
+            notes.append("estimate_plan: every scatter table is one pass "
+                         "over its slots; the real pass count depends on "
+                         "the tables' values")
+        return LoweredCG(
+            y_slices=y_slices, iters=iters,
+            devices=[d for d, _ in ranks],
+            argument=self.argument_bytes(),
+            bound={d: storage_bytes(ts.values()) for d, ts in bound.items()},
+            input=inputs, output=outputs, peak=peak,
+            copies=list(trace.copies), notes=notes,
+        )
 
     def _emit_exchange(self, iters: int, n_slices: int):
         """Annotate a finished solve with its modeled wire traffic.

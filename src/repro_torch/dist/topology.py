@@ -67,6 +67,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..placement import FakeDevice, copy_kind
+
 __all__ = [
     "DeviceMesh",
     "Level",
@@ -98,7 +100,10 @@ class Level:
 class DeviceMesh:
     """An ndarray of ``torch.device`` with named axes, the mesh a
     :class:`Topology` binds (built by ``launch.mesh.make_mesh``, the
-    counterpart of ``jax.make_mesh``).
+    counterpart of ``jax.make_mesh``).  Its devices may instead be
+    ``placement.FakeDevice`` placeholders
+    (``launch.mesh.make_production_mesh``), which only an abstract
+    ``Reconstructor`` binds.
 
     ``shape`` maps axis name -> size in axis order, as
     ``jax.sharding.Mesh.shape`` does; ``devices`` is the ndarray itself.
@@ -108,7 +113,9 @@ class DeviceMesh:
         src = np.asarray(devices, dtype=object)
         arr = np.empty(src.shape, dtype=object)
         for idx in np.ndindex(arr.shape):
-            d = torch.device(src[idx])
+            d = src[idx]
+            if not isinstance(d, FakeDevice):  # placeholders stay as given
+                d = torch.device(d)
             if d.type == "cuda" and d.index is None:
                 # the card a bare "cuda" means, so that a rank's device
                 # compares equal to its tensors'
@@ -561,6 +568,7 @@ def _cat(parts, device):
     return torch.cat([t.to(device) for t in parts], dim=0)
 
 
+@copy_kind("all-reduce")
 def all_reduce(xs, groups) -> list:
     """Every member of a group gets the group's sum (``psum``)."""
     out = list(xs)
@@ -571,6 +579,7 @@ def all_reduce(xs, groups) -> list:
     return out
 
 
+@copy_kind("reduce-scatter")
 def reduce_scatter(xs, groups) -> list:
     """Member ``j`` of a group gets chunk ``j`` of the group's sum along
     dim 0 (``psum_scatter(..., tiled=True)``)."""
@@ -583,6 +592,7 @@ def reduce_scatter(xs, groups) -> list:
     return out
 
 
+@copy_kind("all-gather")
 def all_gather(xs, groups) -> list:
     """Every member gets the members' tensors concatenated along dim 0
     in member order (``all_gather(..., tiled=True)``)."""
@@ -593,6 +603,7 @@ def all_gather(xs, groups) -> list:
     return out
 
 
+@copy_kind("all-to-all")
 def all_to_all(xs, groups) -> list:
     """Member ``j`` gets chunk ``j`` of every member's tensor, stacked
     along dim 0 in member order (``all_to_all(split_axis=0,

@@ -56,6 +56,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core.precision import dequantize_block_vals
 
@@ -637,10 +638,18 @@ def spmm_block_ell(inds, vals, winmap, x, *, compute_dtype=torch.float32,
     Returns:
       [B, R, F] fp32 partial output band blocks.
 
-    CPU tensors take :func:`spmm_block_ell_plain`.  CUDA tensors launch a
-    kernel on the current stream (``spmm_block_ell.launches`` counts
-    them, ``LAUNCHES`` by kernel) or raise.
+    CPU tensors take :func:`spmm_block_ell_plain`.  CUDA tensors launch
+    a kernel on the current stream (``spmm_block_ell.launches`` counts
+    them, ``LAUNCHES`` by kernel) or raise.  Meta and fake tensors (an
+    abstract trace) go through the custom op
+    ``torch.ops.repro_torch.spmm_block_ell``, whose registered fake gives
+    the ``[B, R, F]`` f32 output's shape and launches and counts
+    nothing; real tensors skip the op's dispatch, which costs host time
+    on every call.
     """
+    if _traced(x):
+        return _spmm_op(inds, vals, winmap, x, compute_dtype, winsegs,
+                        segoff, scales)
     if x.device.type == "cpu":
         return spmm_block_ell_plain(
             inds, vals, winmap, x, compute_dtype=compute_dtype,
@@ -648,6 +657,17 @@ def spmm_block_ell(inds, vals, winmap, x, *, compute_dtype=torch.float32,
         )
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return _spmm_launch(inds, vals, winmap, x, compute_dtype, winsegs,
+                        segoff, scales)
+
+
+def _traced(x) -> bool:
+    """``x`` carries a shape and no data: a meta or a fake tensor."""
+    return x.is_meta or isinstance(x, FakeTensor)
+
+
+def _fused_staging(inds, winmap, x, winsegs, segoff) -> str:
+    """The fused kernel the tables select, after the shape checks."""
     buf = winmap.shape[-1]
     if winsegs is not None and segoff is not None:
         if segoff.shape[-1] != len(_dma_classes(buf)) + 1:
@@ -669,8 +689,14 @@ def spmm_block_ell(inds, vals, winmap, x, *, compute_dtype=torch.float32,
             )
     if x.dim() != 2:
         raise ValueError(f"x must be [C, F], got {tuple(x.shape)}")
+    return staging
+
+
+def _spmm_launch(inds, vals, winmap, x, compute_dtype, winsegs, segoff,
+                 scales):
+    staging = _fused_staging(inds, winmap, x, winsegs, segoff)
     out = _launch(
-        staging, inds, vals, x, compute_dtype, buf=buf,
+        staging, inds, vals, x, compute_dtype, buf=winmap.shape[-1],
         table=winmap if staging == "per_row" else winsegs,
         segoff=segoff if staging == "sorted" else None, scales=scales,
         nseg=0 if winsegs is None else winsegs.shape[-2],
@@ -678,6 +704,28 @@ def spmm_block_ell(inds, vals, winmap, x, *, compute_dtype=torch.float32,
     )
     spmm_block_ell.launches += 1
     return out
+
+
+def _band_like(inds, x):
+    """The ``[B, R, F]`` f32 band of a fused call: the fake's output."""
+    return x.new_empty((inds.shape[0], inds.shape[2], x.shape[-1]),
+                       dtype=torch.float32)
+
+
+_spmm_op = torch.library.custom_op(
+    "repro_torch::spmm_block_ell", _spmm_launch, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor inds, Tensor vals, Tensor winmap, Tensor x, "
+           "ScalarType compute_dtype, Tensor? winsegs, Tensor? segoff, "
+           "Tensor? scales) -> Tensor",
+)
+
+
+@_spmm_op.register_fake
+def _spmm_fake(inds, vals, winmap, x, compute_dtype, winsegs, segoff,
+               scales):
+    _fused_staging(inds, winmap, x, winsegs, segoff)
+    return _band_like(inds, x)
 
 
 def spmm_block_ell_staged(inds, vals, window, *,
@@ -694,24 +742,42 @@ def spmm_block_ell_staged(inds, vals, window, *,
 
     Returns [B, R, F] fp32.  CPU tensors take
     :func:`spmm_block_ell_staged_plain`; CUDA tensors launch the kernel
-    (``spmm_block_ell_staged.launches``) or raise.
+    (``spmm_block_ell_staged.launches``) or raise; meta and fake tensors
+    go through the custom op ``torch.ops.repro_torch.spmm_block_ell_staged``,
+    whose fake gives the output's shape.
     """
-    if window.device.type == "cpu":
+    if window.device.type == "cpu" and not _traced(window):
         return spmm_block_ell_staged_plain(
             inds, vals, window, compute_dtype=compute_dtype
         )
-    if window.device.type != "cuda":
+    if not _traced(window) and window.device.type != "cuda":
         raise ValueError(f"unsupported device {window.device}")
     if window.dim() != 4 or window.shape[:2] != inds.shape[:2]:
         raise ValueError(
             f"window must be [B, S, BUF, F] with B, S = "
             f"{tuple(inds.shape[:2])}, got {tuple(window.shape)}"
         )
+    if _traced(window):
+        return _staged_op(inds, vals, window, compute_dtype)
+    return _staged_launch(inds, vals, window, compute_dtype)
+
+
+def _staged_launch(inds, vals, window, compute_dtype):
     out = _launch("staged", inds, vals, window, compute_dtype,
                   buf=window.shape[-2])
     spmm_block_ell_staged.launches += 1
     return out
 
+
+_staged_op = torch.library.custom_op(
+    "repro_torch::spmm_block_ell_staged", _staged_launch, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor inds, Tensor vals, Tensor window, "
+           "ScalarType compute_dtype) -> Tensor",
+)
+_staged_op.register_fake(
+    lambda inds, vals, window, compute_dtype: _band_like(inds, window)
+)
 
 spmm_block_ell.launches = 0
 spmm_block_ell_staged.launches = 0

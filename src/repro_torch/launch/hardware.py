@@ -35,6 +35,9 @@ class Hardware:
     f32_flops: float = 67e12
     # HBM3 device memory, 80 GB (H100 SXM datasheet: 3.35 TB/s)
     hbm_bw: float = 3.35e12
+    # its size (H100 SXM datasheet: 80 GB); the dry run holds a rank's
+    # peak against it
+    hbm_bytes: float = 80e9
     # one NVLink 4 link, one direction (H100 SXM datasheet: 900 GB/s
     # both directions over 18 links, 25 GB/s each way a link)
     ici_bw: float = 25e9

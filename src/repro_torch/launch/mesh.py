@@ -28,8 +28,15 @@ import numpy as np
 import torch
 
 from ..dist.topology import LINK_CLASSES, DeviceMesh
+from ..placement import FakeDevice
 
-__all__ = ["DeviceMesh", "make_mesh", "mesh_axis_classes"]
+__all__ = [
+    "DeviceMesh",
+    "make_fake_mesh",
+    "make_mesh",
+    "make_production_mesh",
+    "mesh_axis_classes",
+]
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
@@ -75,6 +82,39 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
     arr = np.empty(size, dtype=object)
     arr[:] = devs
     return DeviceMesh(arr.reshape(shape), axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The paper-scale mesh of the dry run: ``(16, 16)`` over
+    ``("data", "model")``, or ``(2, 16, 16)`` over ``("pod", "data",
+    "model")`` with ``multi_pod``.
+
+    Its devices are placeholders, ``cuda:0`` ... ``cuda:n-1`` in row-major
+    order (:func:`make_fake_mesh`), the counterpart of the reference's 256 or 512 forced host
+    devices: they exist for ``Reconstructor(..., abstract=True)``, which
+    binds fake tensors and allocates nothing.  They are not checked
+    against the cards present, as :func:`make_mesh` does for a real mesh;
+    a non-abstract ``Reconstructor`` on this mesh raises on a machine
+    without those cards.
+
+    >>> mesh = make_production_mesh(multi_pod=True)
+    >>> mesh.shape, mesh.size, str(mesh.devices[1, 0, 0])
+    ({'pod': 2, 'data': 16, 'model': 16}, 512, 'cuda:256')
+    """
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_fake_mesh(shape, axes)
+
+
+def make_fake_mesh(axis_shapes: Sequence[int],
+                   axis_names: Sequence[str]) -> DeviceMesh:
+    """A mesh of placeholders ``cuda:0`` ... ``cuda:n-1`` in row-major
+    order (``placement.FakeDevice``), for an abstract
+    ``Reconstructor``: any shape, whatever cards the machine has."""
+    shape = tuple(int(n) for n in axis_shapes)
+    devs = np.empty(math.prod(shape), dtype=object)
+    devs[:] = [FakeDevice("cuda", i) for i in range(devs.size)]
+    return DeviceMesh(devs.reshape(shape), axis_names)
 
 
 def mesh_axis_classes(multi_pod: bool = False) -> dict:

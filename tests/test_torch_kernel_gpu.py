@@ -856,3 +856,77 @@ def test_cuda_calibrate_per_copy_overhead(cuda):
     assert cal["per_copy_overhead_s"] > 0
     assert cal["strided_issues"] > 100 * cal["contig_issues"]
     assert txs.LAUNCHES["sorted"] > 0
+
+
+def _plan64(n_data=1):
+    """n=64 plan (one rank, or four with socket 2) and its phantom
+    sinogram of 16 slices."""
+    key = ("plan64", n_data)
+    if key not in _MESH_PLAN:
+        from repro_torch.core.geometry import XCTGeometry, build_system_matrix
+        from repro_torch.core.partition import PartitionConfig, build_plan
+        from repro_torch.data.phantom import phantom_slices
+
+        geo = XCTGeometry(n=64, n_angles=96)
+        a = build_system_matrix(geo)
+        _MESH_PLAN[key] = build_plan(geo, PartitionConfig(
+            n_data=n_data, socket=2 if n_data > 1 else 1, tile=8,
+            rows_per_block=32, nnz_per_stage=32), a=a)
+        _MESH_PLAN["sino64"] = (a @ phantom_slices(64, 16)).astype(
+            np.float32)
+    return _MESH_PLAN[key], _MESH_PLAN["sino64"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ranks,mode", [(1, "hier"), (4, "hier-sparse")])
+def test_cuda_lower_cg_argument_bytes_equal_the_bound_tensors(cuda, ranks,
+                                                              mode):
+    """At n=64 the abstract reconstructor's argument bytes are, rank by
+    rank, the bytes of the tensors a real one binds on the card (each
+    storage's ``nbytes``), and the traced peak is at least the arguments
+    and the inputs; the real solve's peak is printed beside it."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.core.recon import _bound_tensors
+    from repro_torch.dist import Topology
+    from repro_torch.launch.mesh import make_fake_mesh
+
+    plan, sino = _plan64(ranks)
+    cfg = ReconConfig(precision="mixed", comm_mode=mode, fuse=16)
+    if ranks == 1:
+        fake = Reconstructor(plan, cfg, abstract=True)
+        real = Reconstructor(plan, cfg)
+    else:
+        fake = Reconstructor(plan, cfg, abstract=True, topology=(
+            Topology.from_mesh(make_fake_mesh((2, 2), ("data", "model")),
+                               data_axes=("model", "data"), batch_axes=())))
+        real = Reconstructor(plan, cfg, topology=_mesh_topology(cuda))
+    lowered = fake.lower_cg(16, iters=2)
+    mem = lowered.memory_analysis()
+    bound = [sum(t.untyped_storage().nbytes() for t in _bound_tensors(a))
+             for a in real._arrays]
+    assert list(mem.per_rank["argument"]) == bound
+    assert mem.rank0["peak"] >= bound[0] + mem.rank0["input"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    real.reconstruct(sino, iters=2)
+    print(f"ranks={ranks} abstract peak {mem.rank0['peak']} real peak "
+          f"{torch.cuda.max_memory_allocated()}")
+
+
+@pytest.mark.gpu
+def test_cuda_fake_trace_launches_no_kernel(cuda):
+    """A trace goes through the kernel entries' custom ops and their
+    fakes: no launch, no count; the same entry on CUDA tensors
+    launches and counts."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+
+    plan, sino = _plan64()
+    cfg = ReconConfig(precision="mixed", fuse=16)
+    txs.reset_launches()
+    lowered = Reconstructor(plan, cfg, abstract=True).lower_cg(16, iters=2)
+    torch.cuda.synchronize()
+    assert txs.spmm_block_ell.launches == 0
+    assert all(n == 0 for n in txs.LAUNCHES.values())
+    assert lowered.memory_analysis().temp_size_in_bytes > 0
+    Reconstructor(plan, cfg).reconstruct(sino, iters=2)
+    assert txs.LAUNCHES["sorted"] == txs.spmm_block_ell.launches == 6
