@@ -94,7 +94,20 @@ Phases, each fatal on failure:
    two, on the oracle's path (the reference's cell) and the kernel path,
    each in a process of its own started before (a): the busiest rank's
    and rank 0's bytes against the card's memory, and the traced bytes
-   between devices beside the modeled ones.
+   between devices beside the modeled ones.  The CG vectors are sharded
+   per rank, so on the kernel path rank 0 must hold no more than 1.05x
+   the busiest other rank, and xct-brain on one pod must fit the card;
+10. LM serving (``repro_torch.models``, ``launch.lm_serve``): qwen3-4b
+   at its full published width and depth from seeded weights on the
+   card: (a) the cache invariant (prefill 32 tokens, decode token 32,
+   against the forward over 33) held to the reference's bound with f32
+   activations and measured in bf16; (b) the first two layers, copied
+   to the host, against the card: bf16 prefill logits within 2e-2 of
+   max|.| and equal f32 greedy tokens; (c) every architecture's SMOKE
+   config on the card, the cache invariant in bf16 and recurrentgemma's
+   window past its wrap; (d) the serve loop (batch 4, prompt 32, 16
+   tokens) twice, with its prefill seconds, decode tokens per second
+   and peak memory.  No SpMM kernel may launch here.
 
 At f32/f32 row 1 must equal its plain version bit for bit (phase 2):
 both round the step once, as one fused multiply-add.
@@ -1636,14 +1649,14 @@ def dry_run(plan, plan4, a, device, procs):
             raise AssertionError(f"9{key}: abstract argument bytes "
                                  f"{fake_args} != bound on the card {bound}")
         staged = real.stage_sino(sino)
-        x0 = real._upload(np.zeros((real.tomo_pad, FUSE), np.float32))
+        x0 = real._shard(np.zeros((real.tomo_pad, FUSE), np.float32))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
             x, _ = real._solve(staged.y, x0, DRY_ITERS)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        if not torch.isfinite(x).all():
+        if not all(torch.isfinite(t).all() for t in x.parts):
             raise AssertionError(f"9{key}: the real solve is not finite")
         real_launches += xs.LAUNCHES["sorted"]
         solve_launches = dict(xs.LAUNCHES)
@@ -1698,6 +1711,14 @@ def dry_run(plan, plan4, a, device, procs):
                 for k, v in coll["by_kind"].items())
             + f") against modeled ici_dev {an['ici_dev']:.6g} dci_dev "
             f"{an['dci_dev']:.6g} B; rank 0 sent {coll['rank0_sent']} B")
+        if (ds, multi, path) == ("xct-brain", False, "kernel") and not fits:
+            raise AssertionError(f"9c {tag}: the busiest rank's {busiest} B "
+                                 f"do not fit the card's {total} B")
+        if path == "kernel" and rec["rank0_bytes"] > 1.05 * max(
+                mem["peak_others"], 1):
+            raise AssertionError(f"9c {tag}: rank 0 holds "
+                                 f"{rec['rank0_bytes']} B, above 1.05 x "
+                                 f"the other ranks' {mem['peak_others']} B")
         cells[tag] = dict(
             p_data=rec["p_data"], shape=rec["shape"],
             trace_s=rec["compile_s"], busiest=busiest,
@@ -1707,6 +1728,198 @@ def dry_run(plan, plan4, a, device, procs):
             by_kind=coll["by_kind"], card_bytes=total)
     out["cells"] = cells
     return out, real_launches
+
+
+LM_ARCH = "qwen3-4b"  # phase 10's model, at its full published width
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16  # the reference CLI's serving run
+LM_CPU_LAYERS, LM_GREEDY = 2, 4  # (b): depth on the host, greedy steps
+
+
+def lm_close(got, want, tol):
+    """The reference's ``assert_allclose(rtol=tol, atol=tol)``: (max abs
+    difference, max of ``|d| - tol * |want|``, passes)."""
+    d = (got.float() - want.float()).abs()
+    excess = float((d - tol * want.float().abs()).max())
+    return float(d.max()), excess, excess <= tol
+
+
+def lm_invariant(params, cfg, inputs, t):
+    """Prefill ``t`` tokens and decode token ``t`` against the forward
+    over ``t + 1``: both logits at position ``t``."""
+    import torch
+
+    from repro_torch.models.lm import decode_step, prefill
+    from repro_torch.models.transformer import forward
+
+    b = inputs.shape[0]
+    pos = torch.arange(t + 1, device=inputs.device).expand(b, t + 1)
+    ref, _, _ = forward(params, cfg, inputs, positions=pos)
+    _, cache = prefill(params, cfg, inputs[:, :t])
+    _, _, dec = decode_step(params, cfg, cache, inputs[:, t:t + 1], t)
+    return dec, ref[:, t]
+
+
+def lm_greedy(params, cfg, prompts, steps):
+    """The prefill's argmax and ``steps`` greedy decode steps: [B, 1 +
+    steps] tokens on the host."""
+    import torch
+
+    from repro_torch.models.lm import decode_step, prefill
+
+    logits, cache = prefill(params, cfg, prompts)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    out = [tok]
+    for i in range(steps):
+        tok, cache, _ = decode_step(params, cfg, cache, tok,
+                                    prompts.shape[1] + i)
+        out.append(tok)
+    return torch.cat(out, 1).cpu()
+
+
+def lm_path(device):
+    """Phase 10, LM serving on the card: qwen3-4b at full width from
+    seeded weights.  (a) the cache invariant over all 36 layers, held to
+    the reference's bound with f32 activations and caches, and measured
+    in the default bf16 (whose GEMMs over 4 rows and over 132 round
+    differently, a few elements a layer at first: printed, not held);
+    (b) the
+    card against the port's CPU path on the first two layers (the same
+    weights, copied to the host): bf16 prefill logits and f32 greedy
+    tokens; (c) every architecture's SMOKE config on the card, and
+    recurrentgemma's sliding window past its wrap; (d) the serve loop of
+    ``launch.lm_serve`` (batch 4, prompt 32, 16 tokens), twice, with its
+    prefill seconds, decode tokens per second and peak bytes."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.launch import lm_serve
+    from repro_torch.models.lm import prefill
+    from repro_torch.models.transformer import LMParams, init_params
+
+    t_phase = time.perf_counter()
+    out = {"arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "gen": LM_GEN}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(LM_ARCH, max_cache=LM_PROMPT + LM_GEN)
+    gen = torch.Generator(device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = n_params
+    out["param_bytes"] = torch.cuda.memory_allocated() - base
+    log(f"lm 10: {LM_ARCH} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size}: {n_params} parameters, "
+        f"{out['param_bytes']} B in f32, made in {out['init_s']:.2f} s")
+    toks = lm_serve.make_prompts(cfg, LM_BATCH, LM_PROMPT + 1, gen)
+
+    # (a) the cache invariant at full width: f32 activations held to the
+    # reference's bound; the default bf16 measured
+    out["a"] = {}
+    for tag, acfg in (("f32", dataclasses.replace(
+            cfg, activation_dtype=torch.float32,
+            cache_dtype=torch.float32)), ("bf16", cfg)):
+        dec, ref = lm_invariant(params, acfg, toks, LM_PROMPT)
+        err, excess, ok = lm_close(dec, ref, 2e-2)
+        out["a"][tag] = dict(max_abs=err, max_excess=excess, allclose=ok,
+                             ref_max=float(ref.abs().max()),
+                             finite=bool(torch.isfinite(dec).all()))
+        log(f"lm 10a {tag}: decode token {LM_PROMPT} after a {LM_PROMPT}-"
+            f"token prefill against the forward over {LM_PROMPT + 1}: max "
+            f"abs difference {err:.6g} (max |logit| "
+            f"{out['a'][tag]['ref_max']:.4g}), allclose(rtol=2e-2, "
+            f"atol=2e-2) {'holds' if ok else 'does not hold'}")
+    a32 = out["a"]["f32"]
+    if a32["max_abs"] > 2e-2 or not (a32["finite"]
+                                     and out["a"]["bf16"]["finite"]):
+        raise AssertionError(f"10a: the cache invariant fails: {out['a']}")
+
+    # (b) the same weights, first two layers, card against host
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    p2 = LMParams(params.embed, params.unembed, params.final_norm,
+                  list(params.layers[:LM_CPU_LAYERS]))
+    t0 = time.perf_counter()
+    host = copy.deepcopy(p2).to("cpu")
+    prompts = toks[:, :LM_PROMPT]
+    card_logits, _ = prefill(p2, cfg2, prompts)
+    host_logits, _ = prefill(host, cfg2, prompts.cpu())
+    rel = float((card_logits.cpu() - host_logits).abs().max()
+                / host_logits.abs().max())
+    f32 = dataclasses.replace(cfg2, activation_dtype=torch.float32,
+                              cache_dtype=torch.float32)
+    card_tok = lm_greedy(p2, f32, prompts, LM_GREEDY)
+    host_tok = lm_greedy(host, f32, prompts.cpu(), LM_GREEDY)
+    bf_agree = float((lm_greedy(p2, cfg2, prompts, LM_GREEDY)
+                      == lm_greedy(host, cfg2, prompts.cpu(), LM_GREEDY)
+                      ).float().mean())
+    out["b"] = dict(layers=LM_CPU_LAYERS, prefill_rel=rel,
+                    f32_tokens_equal=bool(torch.equal(card_tok, host_tok)),
+                    bf16_tokens_agree=bf_agree,
+                    seconds=time.perf_counter() - t0)
+    log(f"lm 10b: {LM_CPU_LAYERS} layers at full width, card against the "
+        f"host: bf16 prefill logits max abs difference / max|.| {rel:.6g} "
+        f"(bound 2e-2); f32 greedy tokens (prefill + {LM_GREEDY} steps) "
+        f"{'equal' if out['b']['f32_tokens_equal'] else 'DIFFER'}; bf16 "
+        f"greedy tokens agree on {bf_agree:.3f} ({out['b']['seconds']:.1f} s)")
+    if rel > 2e-2 or not out["b"]["f32_tokens_equal"]:
+        raise AssertionError(f"10b: card and host differ: {out['b']}")
+    del host, p2
+
+    # (c) every architecture's SMOKE config on the card
+    out["c"] = {}
+    for name in ARCH_NAMES:
+        scfg = get_config(name, smoke=True, max_cache=32,
+                          moe_capacity_factor=8.0)
+        sp = init_params(scfg, torch.Generator(device).manual_seed(1))
+        x = lm_serve.make_prompts(scfg, 2, 25, gen)
+        rec = dict(zip(("max_abs", "max_excess", "ok"),
+                       lm_close(*lm_invariant(sp, scfg, x, 24), 2e-2)))
+        if name == "recurrentgemma-9b":
+            t_long = scfg.window + 9
+            x = lm_serve.make_prompts(scfg, 2, t_long + 1, gen)
+            rec["wrap"] = dict(zip(
+                ("max_abs", "max_excess", "ok"),
+                lm_close(*lm_invariant(sp, scfg, x, t_long), 3e-2)))
+            rec["ok"] = rec["ok"] and rec["wrap"]["ok"]
+        out["c"][name] = rec
+    log("lm 10c: SMOKE configs on the card, decode against forward "
+        "(allclose 2e-2; the window wrap 3e-2), max abs: " + ", ".join(
+            f"{k} {v['max_abs']:.3g}"
+            + (f" (wrap {v['wrap']['max_abs']:.3g})" if "wrap" in v else "")
+            for k, v in out["c"].items()))
+    bad = [k for k, v in out["c"].items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"10c: the cache invariant fails for {bad}")
+
+    # (d) the serve loop, as launch.lm_serve runs it
+    out["d"] = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prompts = lm_serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, gen)
+        rec = lm_serve.serve(params, cfg, prompts, LM_GEN, gen)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["tokens_shape"] = list(rec.pop("tokens").shape)
+        if rec["tokens_shape"] != [LM_BATCH, LM_GEN]:
+            raise AssertionError(f"10d: tokens {rec['tokens_shape']}")
+        out["d"].append(rec)
+        log(f"lm 10d run {run + 1}: prefill {rec['prefill_s']:.4f} s, "
+            f"decode {rec['decode_s']:.4f} s = {rec['tok_s']:.1f} tok/s "
+            f"({LM_BATCH} x {LM_GEN - 1} tokens), peak "
+            f"max_memory_allocated {rec['peak_bytes']} B")
+    del params
+    gc.collect()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm phase: {out['phase_s']:.1f} s")
+    return out
 
 
 def dev_us(e):
@@ -2211,6 +2424,12 @@ def main():
     if dry_launches == 0:
         raise AssertionError("row 1 must run in phase 9's real solves")
     counts["row1"] += dry_launches
+    phase("phase 10: LM serving")
+    xs.reset_launches()
+    lm = lm_path(device)
+    if any(xs.LAUNCHES.values()):
+        raise AssertionError(f"the LM path launched an SpMM kernel: "
+                             f"{dict(xs.LAUNCHES)}")
     kernels = []
     for key, name, replaces in KERNELS:
         kernels.append(entry(
@@ -2225,6 +2444,7 @@ def main():
     kernels[0]["stream"] = stream
     kernels[0]["serve"] = serve
     kernels[0]["dry_run"] = dry
+    kernels[0]["lm"] = lm
     phase("done")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -28,8 +28,8 @@ that run:
   recorded with its bytes, its link class (the slowest
   ``dist.LINK_CLASSES`` axis on which the two devices' mesh coordinates
   differ) and its kind, the ``placement.copy_kind`` tag of the code
-  that moved it: ``reduce-scatter``, ``all-to-all``, ... or the port's
-  own ``split`` / ``gather`` of rank 0's global vectors.
+  that moved it: ``reduce-scatter``, ``all-to-all``, ``pmax`` and
+  ``psum`` (the CG's scale and dots), ...
 
 :class:`LoweredCG` is the record a trace leaves: ``memory_analysis()``
 with the reference's field names and ``collectives()`` in the shape of

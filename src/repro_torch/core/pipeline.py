@@ -58,7 +58,9 @@ def pipelined_apply(
         (local SpMM on each rank).
       reduce_fn: the ranks' partials -> [rows_out, F] owned output (the
         communication phase).
-      x_all: [C, Y] input slab, ``Y = n_mini * fuse``.
+      x_all: [C, Y] input slab, ``Y = n_mini * fuse``; or a list of the
+        ranks' row chunks of it, each on its rank's device, in which
+        case ``kernel_fn`` takes and ``reduce_fn`` returns such lists.
       fuse: minibatch size F (the paper's FFACTOR; 16 in their runs).
       overlap: issue kernel ``i`` before the reduction of ``i-1``
         (Fig. 8) or serialize the two phases.
@@ -67,15 +69,29 @@ def pipelined_apply(
         :func:`side_streams`).
 
     Returns:
-      [rows_out, Y] reduced output for the whole I/O batch.
+      [rows_out, Y] reduced output for the whole I/O batch (a list of
+      the ranks' row chunks of it for a list ``x_all``).
     """
-    y = x_all.shape[1]
+    many = isinstance(x_all, (list, tuple))
+    xs = list(x_all) if many else [x_all]
+    y = xs[0].shape[1]
     if y % fuse:
         raise ValueError(f"slice count {y} is not a multiple of fuse={fuse}")
-    minis = (x_all[:, i * fuse:(i + 1) * fuse].contiguous()
+    minis = ([x[:, i * fuse:(i + 1) * fuse].contiguous() for x in xs]
              for i in range(y // fuse))
+    if not many:
+        minis = (m[0] for m in minis)
     if overlap and streams:
-        return _overlapped(kernel_fn, reduce_fn, minis, list(streams))
+        outs = _overlapped(kernel_fn, reduce_fn, minis, list(streams))
+    else:
+        outs = _in_order(kernel_fn, reduce_fn, minis, overlap)
+    if not many:
+        return torch.cat(outs, dim=1)
+    return [torch.cat([o[p] for o in outs], dim=1) for p in range(len(xs))]
+
+
+def _in_order(kernel_fn, reduce_fn, minis, overlap):
+    """The minibatches' outputs, every operation on the current stream."""
     outs = []
     pending = None
     for x in minis:
@@ -88,11 +104,12 @@ def pipelined_apply(
         pending = band
     if pending is not None:
         outs.append(reduce_fn(pending))
-    return torch.cat(outs, dim=1)
+    return outs
 
 
 def _overlapped(kernel_fn, reduce_fn, minis, streams):
-    """The Fig. 8 order with the reduce phase on ``streams``."""
+    """The Fig. 8 order with the reduce phase on ``streams``: the
+    minibatches' outputs."""
     main = {s.device: torch.cuda.current_stream(s.device) for s in streams}
     side = {s.device: s for s in streams}
 
@@ -107,7 +124,8 @@ def _overlapped(kernel_fn, reduce_fn, minis, streams):
                 stack.enter_context(torch.cuda.stream(s))
             out = reduce_fn(band)
         # made on the side stream, read by the caller's stream's cat
-        out.record_stream(main[out.device])
+        for t in out if isinstance(out, list) else [out]:
+            t.record_stream(main[t.device])
         return out
 
     outs = []
@@ -121,4 +139,4 @@ def _overlapped(kernel_fn, reduce_fn, minis, streams):
     outs.append(reduce_on_side(*pending))
     for s in streams:
         main[s.device].wait_stream(s)
-    return torch.cat(outs, dim=1)
+    return outs

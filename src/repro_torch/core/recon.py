@@ -11,13 +11,16 @@ sparse footprint exchange) -> the owned chunks concatenated in rank order
 -> CGNR update.
 
 One process drives every rank, as the reference's ``shard_map`` does
-(``dist.DeviceMesh``).  The vectors are split as the reference's
-``P(data_axes, batch_axes)``: their columns (slices) contiguously over
-the batch groups, each group a full set of data ranks that runs its own
-CG solve on its columns; within a group rank ``p`` holds shard ``p`` of
-every operator array on its mesh device, and the group's CG vectors stay
-on its rank 0's device, split by rank into row chunks for the kernels.
-Without a topology the reconstructor has one rank on ``device``.
+(``dist.DeviceMesh``).  The vectors are sharded as the reference's
+``P(data_axes, batch_axes)`` (``core.sharded.Sharded``): their columns
+(slices) contiguously over the batch groups, each group a full set of
+data ranks that runs its own CG solve on its columns; within a group
+rank ``p`` holds shard ``p`` of every operator array and row chunk ``p``
+of every vector on its mesh device.  The CG dots sum each rank's rows
+and then the ranks' sums (the reference's ``psum``); the adaptive scale
+takes the group's maximum (its ``pmax``).  Only the host joins the
+chunks, once, when a result is downloaded.  Without a topology the
+reconstructor has one rank on ``device``.
 
 The solve is timed by the ``recon/stage`` and ``recon/solve`` spans of
 ``obs.trace``; with tracing on, a ``recon/exchange`` instant and the
@@ -65,6 +68,7 @@ from .precision import (
     qcast,
     quantize_block_vals,
 )
+from .sharded import Sharded
 from .solver import cgnr
 
 __all__ = ["ReconConfig", "Reconstructor", "StagedSlab", "resolve_device"]
@@ -123,7 +127,8 @@ class StagedSlab:
     numpy slab to skip the host->device staging inside the solve.
     """
 
-    y: torch.Tensor  # [sino_pad, Y] f32 on rank 0's device, pre-scaled
+    y: Sharded  # [sino_pad, Y] f32, pre-scaled, each rank's rows on its
+    #   device (``.cpu()`` joins them on the host)
     scale: np.ndarray  # [Y] power-of-two per-slice normalization
     n_slices: int
 
@@ -247,8 +252,7 @@ class Reconstructor:
         else:
             _check_devices(self.mesh)
             place, bind = (lambda d: d), self._device_arrays
-        # the data ranks' devices of each batch group; group 0's rank 0
-        # holds the global vectors
+        # the data ranks' devices of each batch group
         self.groups = [[place(d) for d in topology.rank_devices(b)]
                        for b in range(self.n_batch)]
         self.devices = self.groups[0]
@@ -338,8 +342,50 @@ class Reconstructor:
             t = t.pin_memory()
         return t.to(device, non_blocking=True)
 
-    def _download(self, t: torch.Tensor) -> np.ndarray:
-        return t.detach().to("cpu").numpy()
+    def _runs(self, g: int) -> list:
+        """``[(device, ranks)]``: batch group ``g``'s runs of consecutive
+        ranks on one device, in rank order (each a block of a
+        :class:`Sharded` vector)."""
+        runs = []
+        for d in self.groups[g]:
+            if runs and runs[-1][0] == d:
+                runs[-1][1] += 1
+            else:
+                runs.append([d, 1])
+        return [tuple(r) for r in runs]
+
+    def _blocks(self, shape):
+        """``(device, ranks, rows, cols)`` of each block of a ``[pad, Y]``
+        vector, group major: a run of ranks ``p .. p + ranks - 1`` of
+        group ``g`` holds their row chunks of group ``g``'s columns on
+        their device."""
+        n, y = shape
+        per_rank = n // len(self.devices)
+        per_group = y // self.n_batch
+        for g in range(self.n_batch):
+            p = 0
+            for d, r in self._runs(g):
+                yield (d, r, slice(p * per_rank, (p + r) * per_rank),
+                       slice(g * per_group, (g + 1) * per_group))
+                p += r
+
+    def _sharded(self, shape, make) -> Sharded:
+        """A ``[pad, Y]`` :class:`Sharded` whose blocks are
+        ``make(device, rows, cols)``."""
+        blocks = list(self._blocks(shape))
+        return Sharded([make(d, rows, cols) for d, _, rows, cols in blocks],
+                       [r for _, r, _, _ in blocks], self.n_batch)
+
+    def _shard(self, a) -> Sharded:
+        """Host ``[pad, Y]`` -> :class:`Sharded`: each block uploaded
+        straight to its ranks' device."""
+        a = np.asarray(a)
+        return self._sharded(a.shape, lambda d, rows, cols: self._upload(
+            a[rows, cols], d))
+
+    def _download(self, v: Sharded) -> np.ndarray:
+        """A sharded vector joined on the host, once."""
+        return v.cpu().numpy()
 
     # ------------------------------------------------------------------ #
     # device arrays
@@ -532,36 +578,24 @@ class Reconstructor:
     # ------------------------------------------------------------------ #
     def _make_ops(self, g: int = 0):
         """Closures (project, backproject, dot_rows) over batch group
-        ``g``'s ranks; its vectors are global on its rank 0's device."""
+        ``g``'s ranks, on its :class:`Sharded` vectors (each rank's row
+        chunk on the rank's device)."""
         cfg, pol, ranks = self.cfg, self.policy, self._group_arrays(g)
         devices = self.groups[g]
-        dev0 = devices[0]
-        n_ranks = len(ranks)
+        blocks = [r for _, r in self._runs(g)]
+        firsts = np.cumsum([0] + blocks[:-1])  # each block's first rank
         sparse = cfg.comm_mode in _SPARSE_MODES
         hier = cfg.comm_mode == "hier-sparse"
         streams = [self._side[d] for d in dict.fromkeys(devices)
                    if d in self._side]
 
-        @copy_kind("split")
-        def split(x, rows):
-            """Global [n * rows, F] -> per-rank row chunks on their
-            devices (views when a rank shares rank 0's device)."""
-            return [x[p * rows:(p + 1) * rows].to(d)
-                    for p, d in enumerate(devices)]
-
-        @copy_kind("gather")
-        def gather(chunks):
-            """Owned chunks, rank order -> one tensor on rank 0's device."""
-            if n_ranks == 1:
-                return chunks[0].to(dev0)
-            return torch.cat([c.to(dev0) for c in chunks], dim=0)
-
         def one_operator(prefix, op):
-            rows_out, cols = op.rows_per_dev, op.cols_per_dev
+            rows_out = op.rows_per_dev
 
             def kernel(x_f):
-                """The kernel phase: each rank's SpMM on its column
-                chunk, yielding the ranks' bands."""
+                """The kernel phase: each rank's SpMM on its row chunk of
+                the minibatch's blocks, yielding the ranks' bands."""
+                x_f = Sharded(x_f, blocks).rank_views()
                 return [
                     apply_operator(
                         a[f"{prefix}_inds"],
@@ -578,12 +612,13 @@ class Reconstructor:
                         smem_budget=cfg.smem_budget,
                         scales=a.get(f"{prefix}_vscale"),
                     )
-                    for a, x_p in zip(ranks, split(x_f, cols))
+                    for a, x_p in zip(ranks, x_f)
                 ]
 
             def reduce(bands):
-                """The reduce phase: the ranks' bands -> the global owned
-                output [n_rows_pad, F] on rank 0's device."""
+                """The reduce phase: the ranks' bands -> the owned chunks
+                [rows_per_dev, F] of the ranks of each block, on its
+                device."""
                 bandc, inv = qcast(bands, pol.comm, adaptive=pol.adaptive)
                 if sparse:
                     chunks = sparse_exchange(
@@ -609,43 +644,63 @@ class Reconstructor:
                     fulls = [ordered_index_add(a[f"{prefix}_row_map"], b)
                              for a, b in zip(ranks, bandc)]
                     chunks = self.comm_plan.reduce_partials(fulls)
-                return gather(chunks).to(torch.float32) * inv[0]
+                # the ranks share the group's factor: one per block
+                return [b.to(torch.float32) * inv[i] for b, i in zip(
+                    Sharded.pack(chunks, blocks).parts, firsts)]
 
             narrow = pol.storage_bytes < 4 or pol.compute.itemsize < 4
 
-            def apply(x_all):
-                inv = None
+            def apply(x_all: Sharded) -> Sharded:
+                xs, inv = list(x_all.parts), None
                 if narrow:
                     # Paper III-C1: renormalize the evolving iterate per
                     # slice before every (back)projection so the fp16
                     # accumulation never under/overflows; one factor per
-                    # slice for all ranks.
-                    s = adaptive_scale_cols(x_all, 1.0)
-                    x_all = (x_all.to(torch.float32) * s).to(pol.storage)
-                    inv = 1.0 / s
+                    # slice for all ranks (the group's max over its
+                    # blocks, as the reference's pmax over its ranks).
+                    s = adaptive_scale_cols(xs, 1.0)
+                    xs = [(x.to(torch.float32) * f).to(pol.storage)
+                          for x, f in zip(xs, s)]
+                    inv = [1.0 / f for f in s]
                 out = pipelined_apply(
-                    kernel, reduce, x_all, cfg.fuse, overlap=cfg.overlap,
+                    kernel, reduce, xs, cfg.fuse, overlap=cfg.overlap,
                     streams=streams,
                 )
-                return out if inv is None else out * inv
+                if inv is not None:
+                    out = [o * i for o, i in zip(out, inv)]
+                return Sharded(out, blocks)
 
             return apply
 
         project = one_operator("proj", self.plan.proj)
         backproject = one_operator("back", self.plan.back)
 
-        def dot_rows(u, v):
+        @copy_kind("psum")
+        def dot_rows(u: Sharded, v: Sharded) -> Sharded:
             # Scalar reductions always in f32: a half-mode dot over 1e6+
-            # entries overflows f16's 65504 range.  The group's vectors
-            # are global, so this sums the rows of its data ranks only
-            # (the reference's local sum + psum over the data axes, in
-            # another order).  The f32 products are summed in f64 and the
-            # sum rounded once: PyTorch's row sums reduce in an order that
-            # depends on the column count, and an f32 sum would carry
-            # that order into the CG's last bits, which 8 iterations
-            # amplify to 1e-2 (a streamed slab against the full volume)
-            return torch.sum(u.to(torch.float32) * v.to(torch.float32), dim=0,
-                             dtype=torch.float64).to(torch.float32)
+            # entries overflows f16's 65504 range.  Each rank sums its
+            # rows, then the ranks' sums add in rank order (the
+            # reference's local sum + psum over the data axes).  The f32
+            # products are summed in f64 and the sum rounded once, on
+            # rank 0, and placed on every block: PyTorch's row sums
+            # reduce in an order that depends on the column count, and
+            # an f32 sum would carry that order into the CG's last bits,
+            # which 8 iterations amplify to 1e-2 (a streamed slab against
+            # the full volume)
+            partials = []
+            for a, b, r in zip(u.parts, v.parts, u.ranks):
+                prod = a.to(torch.float32) * b.to(torch.float32)
+                if r == 1:
+                    partials.append(torch.sum(prod, dim=0,
+                                              dtype=torch.float64))
+                else:  # one row sum per rank of the block
+                    partials += prod.reshape(r, -1, prod.shape[-1]).sum(
+                        dim=1, dtype=torch.float64).unbind(0)
+            total = partials[0]
+            for t in partials[1:]:
+                total = total + t.to(total.device)
+            total = total.to(torch.float32)
+            return Sharded([total.to(b.device) for b in u.parts], u.ranks)
 
         return project, backproject, dot_rows
 
@@ -660,24 +715,15 @@ class Reconstructor:
             )
 
     def _by_group(self, fn, *vectors):
-        """Run ``fn(g, *columns)`` for every batch group on its columns of
-        ``vectors`` (global on rank 0's device), moved to the group's
-        device; the groups' results join along the columns on rank 0's
-        device.  ``fn`` returns one tensor or a tuple of them."""
-        outs = []
-        for g, group in enumerate(self.groups):
-            with copy_kind("batch"):
-                cols = [v.tensor_split(self.n_batch, dim=1)[g].to(group[0])
-                        for v in vectors]
-            outs.append(fn(g, *cols))
-        if self.n_batch == 1:
-            return outs[0]
-        with copy_kind("batch"):
-            if isinstance(outs[0], tuple):
-                return tuple(
-                    torch.cat([o[i].to(self.device) for o in outs], 1)
-                    for i in range(len(outs[0])))
-            return torch.cat([o.to(self.device) for o in outs], dim=1)
+        """Run ``fn(g, *blocks)`` for every batch group on its blocks of
+        the :class:`Sharded` ``vectors`` (already on the group's
+        devices); the groups' results join into one :class:`Sharded`
+        each.  ``fn`` returns one :class:`Sharded` or a tuple of them."""
+        outs = [fn(g, *(v.group(g) for v in vectors))
+                for g in range(self.n_batch)]
+        if isinstance(outs[0], tuple):
+            return tuple(Sharded.join(o) for o in zip(*outs))
+        return Sharded.join(outs)
 
     def _concrete(self):
         if self.abstract:
@@ -694,7 +740,7 @@ class Reconstructor:
             op = proj if which == "project" else back
             return op(x).to(torch.float32)
 
-        x = self._upload(packed).to(self.policy.storage)
+        x = self._shard(packed).to(self.policy.storage)
         with torch.no_grad():
             out = self._by_group(one, x)
         return self._download(out)
@@ -714,11 +760,12 @@ class Reconstructor:
     def stage_sino(self, sino_nat) -> StagedSlab:
         """Pack + normalize + upload one sinogram slab (host -> device).
 
-        The copy goes through pinned host memory on a CUDA stream of the
-        reconstructor's own (so a prefetch thread's upload runs beside
-        the solve on the device's default stream); this method then
-        waits for that stream alone, so the caller's timing is honest and
-        the slab is on the device when it returns.
+        Each rank's rows of its group's columns go straight to its
+        device.  The copies go through pinned host memory on a CUDA
+        stream of the reconstructor's own (so a prefetch thread's upload
+        runs beside the solve on the device's default stream); this
+        method then waits for that stream alone, so the caller's timing
+        is honest and the slab is on the device when it returns.
         """
         self._concrete()
         self._check_slices(sino_nat.shape[1])
@@ -732,10 +779,10 @@ class Reconstructor:
                 np.round(np.log2(1.0 / np.maximum(m, 1e-30)))
             ).astype(np.float32)
             if self._stage_stream is None:
-                y_dev = self._upload(y * scale)
+                y_dev = self._shard(y * scale)
             else:
                 with torch.cuda.stream(self._stage_stream):
-                    y_dev = self._upload(y * scale)
+                    y_dev = self._shard(y * scale)
                 self._stage_stream.synchronize()
         return StagedSlab(
             y=y_dev, scale=scale, n_slices=int(sino_nat.shape[1])
@@ -757,11 +804,12 @@ class Reconstructor:
             if isinstance(sino_nat, StagedSlab)
             else self.stage_sino(sino_nat)
         )
-        if staged.y.device.type == "cuda":
-            # staged on the staging stream, read on this one: the caching
-            # allocator must not hand its memory out again before this
-            # stream is done with it
-            staged.y.record_stream(torch.cuda.current_stream(staged.y.device))
+        for t in staged.y.parts:
+            if t.device.type == "cuda":
+                # staged on the staging stream, read on this one: the
+                # caching allocator must not hand its memory out again
+                # before this stream is done with it
+                t.record_stream(torch.cuda.current_stream(t.device))
         scale = staged.scale
         x0 = (
             self.pack_tomo(x0_nat) * scale
@@ -772,8 +820,9 @@ class Reconstructor:
             "recon/solve", iters=iters, slices=staged.n_slices
         ) as sp:
             with torch.no_grad():
-                x, res = self._solve(staged.y, self._upload(x0), iters)
-            sp.fence((x, res))  # the span ends when the device is done
+                x, res = self._solve(staged.y, self._shard(x0), iters)
+            # the span ends when the devices are done
+            sp.fence((x.parts, res.parts))
         self._emit_exchange(iters, staged.n_slices)
         x_nat = self.unpack_tomo(self._download(x)) / scale
         # the resilience guard: a blown-up solve (or an injected
@@ -789,11 +838,12 @@ class Reconstructor:
                 f"{staged.n_slices} slices "
                 f"(precision={self.cfg.precision})"
             )
-        return x_nat, self._download(res) / scale
+        return x_nat, self._download(res.first_ranks()) / scale
 
-    def _solve(self, y, x0, iters: int):
+    def _solve(self, y: Sharded, x0: Sharded, iters: int):
         """The CG solve of every batch group on ``y`` and ``x0`` ([pad,
-        Y], global on rank 0's device): ``(x, resnorms)`` in f32."""
+        Y], sharded): ``(x, resnorms)`` in f32, ``resnorms`` the same
+        ``[iters, Y]`` on every block of a group."""
         pol = self.policy
 
         def solve(g, y, x0):
@@ -811,11 +861,11 @@ class Reconstructor:
 
         Runs :meth:`reconstruct`'s solve -- the same ``cgnr`` through
         ``_make_ops``, rank loop, exchange and kernels' fakes -- on a fake
-        ``y [sino_pad, Y]`` and ``x0 [tomo_pad, Y]`` on rank 0's
-        placeholder, and returns the trace's :class:`LoweredCG`: the bound
-        bytes of every rank, the inputs, outputs and peak of every device,
-        and every copy between devices.  Nothing is allocated and no
-        kernel is launched.
+        ``y [sino_pad, Y]`` and ``x0 [tomo_pad, Y]`` sharded as the real
+        solve's (each rank's block on its placeholder), and returns the
+        trace's :class:`LoweredCG`: the bound bytes of every rank, the
+        inputs, outputs and peak of every device, and every copy between
+        devices.  Nothing is allocated and no kernel is launched.
         """
         if not self.abstract:
             raise ValueError("lower_cg traces a Reconstructor(..., "
@@ -828,17 +878,27 @@ class Reconstructor:
         for d, a in ranks:
             bound.setdefault(d, {}).update(
                 {id(t.untyped_storage()): t for t in _bound_tensors(a)})
-        dev0 = self.device
+
+        def fake(rows):
+            return self._sharded((rows, y_slices), lambda d, r, c: trace.empty(
+                (r.stop - r.start, c.stop - c.start), torch.float32, d))
+
+        def per_device(*vectors):
+            on: dict = {}
+            for v in vectors:
+                for d, t in zip(devs, v.parts):
+                    on.setdefault(d, []).append(t)
+            return {d: storage_bytes(ts) for d, ts in on.items()}
+
+        devs = [d for g in range(self.n_batch) for d, _ in self._runs(g)]
         with trace.running([t for ts in bound.values()
                             for t in ts.values()]):
-            y = trace.empty((self.sino_pad, y_slices), torch.float32, dev0)
-            x0 = trace.empty((self.tomo_pad, y_slices), torch.float32, dev0)
-            inputs = {dev0: storage_bytes([y, x0])}
+            y, x0 = fake(self.sino_pad), fake(self.tomo_pad)
+            inputs = per_device(y, x0)
             x, res = self._solve(y, x0, iters)
-            outputs = {dev0: storage_bytes([x, res])}
+            outputs = per_device(x, res)
             peak = dict(trace.peak)
-        notes = ["the CG vectors are global on rank 0's device, split and "
-                 "gathered around each operator application"]
+        notes = []
         if not isinstance(self.plan.proj.row_map, np.ndarray):
             notes.append("estimate_plan: every scatter table is one pass "
                          "over its slots; the real pass count depends on "

@@ -4,7 +4,9 @@ CGNR (conjugate gradient on the normal equations) with a fixed iteration
 count, as in the paper's evaluation (30 CG iterations = 31 projections +
 31 backprojections).  The solver sees two linear maps and a dot product;
 ``core.recon`` closes them over the operators, so the same code runs
-dense test closures and the blocked-ELL kernel.
+dense test closures and the blocked-ELL kernel, on tensors or on the
+vectors ``core.recon`` shards by rows over the ranks
+(``core.sharded.Sharded``, whose dot products sit on every rank).
 
 Per-slice scalars: slices of the volume are independent least-squares
 problems sharing ``A``; alpha/beta are computed per fused slice (shape
@@ -77,9 +79,5 @@ def cgnr(
         p = s + beta[None, :] * co(p)
         resnorms.append(torch.sqrt(dot_rows(r, r)))
         x, p, gamma = st(x), st(p), gamma_new
-    if resnorms:
-        res = torch.stack(resnorms)
-    else:
-        res = torch.zeros((0, y.shape[-1]), dtype=gamma.dtype,
-                          device=gamma.device)
+    res = torch.stack(resnorms) if resnorms else gamma[None][:0]
     return x, res

@@ -129,7 +129,7 @@ def lower_xct_cell(dataset: str, multi_pod: bool, iters: int = 2, *,
     The record has the reference's keys, with ``collectives_traced``
     (:meth:`~repro_torch.core.lowering.LoweredCG.collectives`) in the
     place of ``collectives_hlo``; ``rank0_bytes`` is rank 0's peak (its
-    shards, the global CG vectors and the run's temporaries) and
+    shards, its rows of the CG vectors and the run's temporaries) and
     ``card_bytes`` the card's memory (``hw.hbm_bytes``).
     """
     from ..core.geometry import XCTGeometry
@@ -183,8 +183,7 @@ def lower_xct_cell(dataset: str, multi_pod: bool, iters: int = 2, *,
             "out_bytes": mem.output_size_in_bytes,
             "peak_bytes": mem.peak_size_in_bytes,
             "rank": mem.rank,
-            # the most any rank but rank 0 holds: rank 0 alone holds the
-            # global CG vectors
+            # the most any rank but rank 0 holds, beside rank0's peak
             "peak_others": int(max(mem.per_rank["peak"][1:], default=0)),
             "rank0": mem.rank0,
             "notes": lowered.notes,

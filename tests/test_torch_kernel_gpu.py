@@ -445,7 +445,7 @@ _MESH_PLAN: dict = {}
 
 def _mesh_plan():
     """n=32 plan over four ranks, socket layout 2, with its operator."""
-    if not _MESH_PLAN:
+    if "plan" not in _MESH_PLAN:
         from repro_torch.core.geometry import XCTGeometry, build_system_matrix
         from repro_torch.core.partition import PartitionConfig, build_plan
 
@@ -587,6 +587,26 @@ def test_cuda_sparse_exchange_is_reproducible(cuda, mode):
     rec = Reconstructor(plan, ReconConfig(comm_mode=mode, fuse=2),
                         topology=_mesh_topology(cuda))
     first, again = (rec.reconstruct(sino, iters=5) for _ in range(2))
+    np.testing.assert_array_equal(first[0], again[0])
+    np.testing.assert_array_equal(first[1], again[1])
+
+
+@pytest.mark.gpu
+def test_cuda_p4_solve_with_sharded_vectors_is_reproducible(cuda):
+    """Four ranks of one card hold their rows of every CG vector in one
+    block on the card; a mixed ``hier`` solve gives its second run's
+    bits."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+
+    plan, _ = _mesh_plan()
+    _, sino = _small_plan()
+    rec = Reconstructor(plan, ReconConfig(comm_mode="hier", fuse=2),
+                        topology=_mesh_topology(cuda))
+    staged = rec.stage_sino(sino)
+    assert staged.y.ranks == (4,) and staged.y.device.type == "cuda"
+    assert [t.shape[0] for t in staged.y.rank_views()] == \
+        [plan.proj.rows_per_dev] * 4
+    first, again = (rec.reconstruct(staged, iters=5) for _ in range(2))
     np.testing.assert_array_equal(first[0], again[0])
     np.testing.assert_array_equal(first[1], again[1])
 

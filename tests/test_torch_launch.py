@@ -306,8 +306,10 @@ def test_lower_xct_cell_xct_shale(ref):
     coll = rec["collectives_traced"]
     assert {"ops", "ici_bytes", "dci_bytes", "by_kind"} <= set(coll)
     assert coll["dci_bytes"] == 0 and coll["ici_bytes"] > 0
-    assert "batch" in coll["by_kind"]  # 4 batch groups on one pod
-    assert "other" not in coll["by_kind"]
+    # 4 batch groups on one pod, each on its own columns: nothing moves
+    # a group's vectors, and rank 0 holds no more than the other ranks
+    assert not set(coll["by_kind"]) & {"batch", "other", "split", "gather"}
+    assert mem["rank0"]["peak"] <= 1.05 * mem["peak_others"], mem
     assert "P_d=64" in ref("shale:raises")
 
 
@@ -407,24 +409,28 @@ def lowered(plans):
 @pytest.mark.parametrize("key,ranks", [("one", 1), ("mesh", 4)])
 def test_lower_cg_runs_the_kernels_fakes_only(lowered, key, ranks):
     """2 operators x (iters + 1) applications x one minibatch per rank,
-    each through the custom op's fake (a launch would have raised); rank
-    0 holds the inputs and outputs, and every rank's peak is at least
-    what it holds."""
+    each through the custom op's fake (a launch would have raised); every
+    rank holds its rows of the inputs and the solution, and the residual
+    norms, and every rank's peak is at least what it holds."""
     rec, low, fakes = lowered[key]
     assert fakes == 2 * 3 * ranks
     mem = low.memory_analysis()
+    for p in range(ranks):
+        assert mem.per_rank["input"][p] == \
+            (rec.sino_pad + rec.tomo_pad) // ranks * 16 * 4
+        assert mem.per_rank["output"][p] == \
+            (rec.tomo_pad // ranks * 16 + 2 * 16) * 4
     r0 = mem.rank0
-    assert r0["input"] == (rec.sino_pad + rec.tomo_pad) * 16 * 4
-    assert r0["output"] == (rec.tomo_pad * 16 + 2 * 16) * 4
     assert r0["peak"] >= r0["argument"] + r0["input"] + r0["output"]
     assert mem.peak_size_in_bytes == max(mem.per_rank["peak"])
     assert (mem.per_rank["peak"] >= mem.per_rank["argument"]).all()
     assert (mem.per_rank["temp"][1:] > 0).all()
     # every copy between devices carries its exchange's tag (one rank
-    # has its vectors where they are and copies nothing)
+    # has its vectors where they are and copies nothing); the vectors
+    # stay sharded, so nothing splits or gathers them
     kinds = set(low.collectives()["by_kind"])
-    assert kinds == ({"split", "gather", "reduce-scatter", "all-to-all",
-                      "pmax"} if ranks > 1 else set()), kinds
+    assert kinds == ({"reduce-scatter", "all-to-all", "pmax", "psum"}
+                     if ranks > 1 else set()), kinds
 
 
 @pytest.mark.parametrize("key,ranks,mode", [("one", 1, "hier"),
@@ -484,8 +490,8 @@ def test_lower_cg_arguments_against_the_reference(ref, lowered, plans, key,
                         0 if unread else 4 * int32[table])
                 elif table == "send":  # int64 where the reference's int32
                     diff[f"{name} send"] = t.untyped_storage().nbytes() // 2
-        # the reference's y and x0 shards are arguments; the port's inputs
-        # are global on rank 0 (input_size_in_bytes)
+        # the reference's y and x0 shards are arguments; the port's are
+        # inputs (input_size_in_bytes)
         diff["y, x0"] = -(rec.sino_pad // ranks + rec.tomo_pad // ranks) \
             * 16 * 4
         assert low.argument[p] - want - sum(diff.values()) == 0, diff
@@ -503,8 +509,8 @@ def test_lower_cg_abstract_estimate_plan_binds_one_pass_per_table():
         assert any("one pass" in n for n in low.notes)
         coll = low.collectives()
         kinds = set(coll["by_kind"])
-        assert {"split", "gather", "pmax"} <= kinds
-        assert "other" not in kinds, kinds
+        assert {"psum", "pmax"} <= kinds
+        assert not kinds & {"other", "split", "gather"}, kinds
         assert coll["ops"] == sum(k["count"]
                                   for k in coll["by_kind"].values())
 

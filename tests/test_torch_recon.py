@@ -185,6 +185,82 @@ def test_stage_sino_and_x0(phantom32, port_plan):
     assert r3[0, 0] <= r2[-1, 0] * 1.01
 
 
+# sha256 (first 16 hex digits) of x.tobytes() + res.tobytes() of 8-iteration
+# solves on the port's own n=32 plan, taken on the CPU before the CG vectors
+# were sharded per rank: "batch" is two batch groups of one rank each
+PARENT_SOLVES = {"single": "062fbbd07844c3ab", "mixed": "ef8ba932dc50f8cc",
+                 "q8": "d565b5f0dae86183", "batch": "ef8ba932dc50f8cc"}
+
+
+@pytest.mark.parametrize("case", sorted(PARENT_SOLVES))
+def test_one_rank_solves_keep_the_parent_bits(case):
+    """At one rank per group the sharded vectors are one block each, the
+    CG dots one f64 sum each: every solve keeps its bits."""
+    import hashlib
+
+    from repro_torch.data.phantom import phantom_slices
+
+    geo = tgeo.XCTGeometry(n=32, n_angles=48)
+    a = tgeo.build_system_matrix(geo)
+    plan = tpart.build_plan(geo, tpart.PartitionConfig(
+        tile=4, rows_per_block=16, nnz_per_stage=16), a=a)
+    y = (a @ phantom_slices(32, 4)).astype(np.float32)
+    if case == "batch":
+        topo = Topology.from_mesh(
+            make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2),
+            data_axes=("model",), batch_axes=("data",))
+        rec = Reconstructor(plan, ReconConfig(precision="mixed", fuse=2),
+                            topology=topo)
+    else:
+        rec = _rec(plan, precision=case)
+    x, res = rec.reconstruct(y, iters=8)
+    digest = hashlib.sha256(x.tobytes() + res.tobytes()).hexdigest()
+    assert digest[:16] == PARENT_SOLVES[case]
+
+
+def test_vectors_stay_sharded_per_rank(phantom32):
+    """Four ranks: the staged sinogram, the iterate and the CG dots are
+    sharded by rank (rank p's rows of each vector; the dots the same on
+    every block); four ranks sharing one device share one block, and
+    the host joins the solution once."""
+    from repro_torch.core.sharded import Sharded
+
+    geo = tgeo.XCTGeometry(n=32, n_angles=48)
+    a = tgeo.build_system_matrix(geo)
+    plan = tpart.build_plan(geo, tpart.PartitionConfig(
+        n_data=4, tile=4, rows_per_block=16, nnz_per_stage=16), a=a)
+    topo = Topology.from_mesh(
+        make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4),
+        data_axes=("model", "data"), batch_axes=())
+    rec = Reconstructor(plan, ReconConfig(precision="single", comm_mode="hier",
+                                          fuse=2), topology=topo)
+    _, y = phantom32
+    staged = rec.stage_sino(y)
+    assert isinstance(staged.y, Sharded) and staged.y.ranks == (4,)
+    assert [tuple(t.shape) for t in staged.y.rank_views()] == \
+        [(plan.proj.rows_per_dev, 4)] * 4
+    np.testing.assert_array_equal(staged.y.cpu().numpy(),
+                                  rec.pack_sino(y) * staged.scale)
+    proj, back, dot = rec._make_ops()
+    r = staged.y
+    s = back(r)
+    assert [tuple(t.shape) for t in s.rank_views()] == \
+        [(plan.back.rows_per_dev, 4)] * 4
+    assert [tuple(t.shape) for t in proj(s).rank_views()] == \
+        [(plan.proj.rows_per_dev, 4)] * 4
+    gamma = dot(s, s)
+    whole = s.cpu().to(torch.float64)
+    want = (whole * whole).sum(0).to(torch.float32)
+    torch.testing.assert_close(gamma.parts[0], want, rtol=1e-6, atol=0)
+    x, res = rec._solve(staged.y, rec._shard(np.zeros((rec.tomo_pad, 4),
+                                                      np.float32)), 3)
+    assert x.ranks == res.ranks == (4,)
+    assert rec._download(res.first_ranks()).shape == (3, 4)
+    # one block per run of ranks on a device: four distinct devices
+    # would give four blocks (the abstract trace's placeholders do)
+    assert rec._runs(0) == [(torch.device("cpu"), 4)]
+
+
 def test_nonfinite_solve_raises(phantom32, port_plan):
     _, y = phantom32
     bad = y.copy()

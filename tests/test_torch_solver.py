@@ -168,3 +168,42 @@ def test_side_streams_only_for_cuda_devices():
     issue order above on the current stream."""
     assert side_streams(["cpu", torch.device("cpu")]) == {}
     assert side_streams([]) == {}
+
+
+@pytest.mark.parametrize("iters", [0, 6])
+def test_cgnr_on_sharded_vectors_matches_one_tensor(iters):
+    """``cgnr`` on row blocks (``core.sharded.Sharded``, dots summed per
+    block in f64 and then across the blocks) against the one-tensor
+    solve: the same arithmetic row by row, the dots in another order."""
+    from repro_torch.core.sharded import Sharded
+
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((40, 24)).astype(np.float32)
+    y = torch.from_numpy(rng.standard_normal((40, 3)).astype(np.float32))
+    at = torch.from_numpy(a)
+    rows_y, rows_x = (0, 10, 40), (0, 16, 24)
+
+    def blocks(t, cuts):
+        return Sharded([t[i:j] for i, j in zip(cuts, cuts[1:])])
+
+    def fwd(x):
+        return blocks(at @ x.cpu(), rows_y)
+
+    def bwd(r):
+        return blocks(at.T @ r.cpu(), rows_x)
+
+    def dot(u, v):
+        total = sum(torch.sum(p * q, 0, dtype=torch.float64)
+                    for p, q in zip(u.parts, v.parts))
+        return Sharded([total.to(torch.float32)] * len(u.parts))
+
+    def dot_one(u, v):
+        return torch.sum(u * v, 0, dtype=torch.float64).to(torch.float32)
+
+    x, res = cgnr(fwd, bwd, blocks(y, rows_y), blocks(torch.zeros(24, 3),
+                                                      rows_x), iters, dot)
+    x1, res1 = cgnr(lambda v: at @ v, lambda v: at.T @ v, y,
+                    torch.zeros(24, 3), iters, dot_one)
+    torch.testing.assert_close(x.cpu(), x1, rtol=1e-5, atol=1e-6)
+    assert res.parts[0].shape == res1.shape == (iters, 3)
+    torch.testing.assert_close(res.parts[1], res1, rtol=1e-5, atol=1e-6)
