@@ -107,7 +107,19 @@ Phases, each fatal on failure:
    config on the card, the cache invariant in bf16 and recurrentgemma's
    window past its wrap; (d) the serve loop (batch 4, prompt 32, 16
    tokens) twice, with its prefill seconds, decode tokens per second
-   and peak memory.  No SpMM kernel may launch here.
+   and peak memory.  No SpMM kernel may launch here;
+11. LM training (``models.lm``, ``opt``, ``data.tokens``, ``ckpt``):
+   smollm-135m at its full published width from seeded weights, 8 x 128
+   token batches: (a) 25 AdamW steps must take the loss down by 0.5;
+   (b) one step at 2 layers, card against host (f32: loss 1e-4, every
+   gradient leaf 1e-3 of its max; bf16: loss 2e-2); (c) the paper's
+   hierarchical bf16 gradient sync on a (pod=2, data=2, model=1) mesh of
+   this card against the spmd step (loss 1e-4, synced gradients 2**-7
+   of max|g|, parameters 5e-3) with the wire bytes per level; (d) a
+   checkpoint at step 10 restored bit for bit and resumed to step 15
+   within the spread of two uninterrupted runs; (e) step seconds,
+   tokens per second and peak memory of the spmd and hier steps beside
+   the card's name and power limit.  No SpMM kernel may launch here.
 
 At f32/f32 row 1 must equal its plain version bit for bit (phase 2):
 both round the step once, as one fused multiply-add.
@@ -117,8 +129,10 @@ limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -488,7 +502,11 @@ def check_shards(plan, device):
     return errs
 
 
-def build_problem(n, angles):
+def build_problem(n, angles, beside=None):
+    """The system matrix and the one-rank plan.  ``beside``, if given, is
+    called with ``(geo, a)`` as soon as the matrix is built: ``main``
+    starts phase 6's plan build there on a thread, so that the two host
+    builds run side by side (numpy holds the GIL little)."""
     from repro_torch.core.geometry import XCTGeometry, build_system_matrix
     from repro_torch.core.partition import PartitionConfig, build_plan
 
@@ -496,6 +514,8 @@ def build_problem(n, angles):
     t0 = time.perf_counter()
     a = build_system_matrix(geo)
     t_a = time.perf_counter() - t0
+    if beside is not None:
+        beside(geo, a)
     t0 = time.perf_counter()
     plan = build_plan(geo, PartitionConfig(), a=a)
     t_plan = time.perf_counter() - t0
@@ -1266,7 +1286,8 @@ def build_mesh_plan(geo, a):
         log(f"mesh plan {name}: shards {list(op.inds.shape)} BUF "
             f"{op.winmap.shape[-1]} rows per rank {op.rows_per_dev} | sparse "
             f"V {v} ({t_s:.1f} s) | hier-sparse W {w} V2 {v2} ({t_h:.1f} s)")
-    log(f"host build: P=4 plan {t_plan:.1f} s (n={geo.n}, socket=2)")
+    log(f"host build: P=4 plan {t_plan:.1f} s (n={geo.n}, socket=2, "
+        "beside the one-rank plan's build)")
     return plan, dict(plan_s=t_plan, **tables)
 
 
@@ -1922,6 +1943,291 @@ def lm_path(device):
     return out
 
 
+TRAIN_ARCH = "smollm-135m"  # phase 11's model, at its full published width
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the reference CLI's defaults
+TRAIN_STEPS, TRAIN_LR = 25, 1e-3  # (a): AdamW steps and learning rate
+TRAIN_CPU_LAYERS = 2  # (b): depth of the card-against-host step
+TRAIN_SAVE, TRAIN_RESUME_TO = 10, 15  # (d): checkpoint step, resumed end
+HIER_MESH = (2, 2, 1)  # (c): ("pod", "data", "model"), every rank the card
+
+
+def train_run(cfg, params, device, steps, start=0, opt_state=None,
+              mgr=None, state_tree=None, keep=None):
+    """AdamW steps ``start .. steps - 1`` of ``make_train_step`` on the
+    ``TokenStream`` batches; returns ``(params, opt_state, losses,
+    seconds)``, each step timed on the host clock between two device
+    synchronizations.  ``mgr`` saves ``state_tree(...)`` after each step
+    it asks for, and ``keep`` (a dict) gets a copy of the tree saved at
+    step ``keep["step"]`` under ``"tree"``, on the host."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.lm import make_train_step
+    from repro_torch.opt import AdamW, leaves
+
+    opt = AdamW(lr=TRAIN_LR)
+    step = make_train_step(cfg, opt)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    if opt_state is None:
+        opt_state = opt.init(params)
+    losses, secs = [], []
+    for s in range(start, steps):
+        batch = stream.batch(s)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(device)
+        secs.append(time.perf_counter() - t0)
+        if mgr is not None:
+            tree = state_tree(params, opt_state, s + 1)
+            if mgr.maybe_save(s + 1, tree) and keep is not None \
+                    and keep["step"] == s + 1:
+                # on the host, so that the peak stays the step's own
+                keep["tree"] = [t.detach().to("cpu", copy=True)
+                                for t in leaves(tree)]
+    return params, opt_state, losses, secs
+
+
+def train_path(device, card):
+    """Phase 11, LM training on the card: smollm-135m at its full
+    published width (30 layers, d_model 576, 9/3 heads, d_ff 1536, vocab
+    49152, tied embeddings) from seeded weights, f32 parameters and bf16
+    activations, ``TokenStream`` batches of 8 x 128 tokens.  (a) 25
+    AdamW steps (lr 1e-3) must take the loss down by at least 0.5; (b)
+    one step's loss and gradients at 2 layers of full width, the card
+    against the host: f32 activations 1e-4 (loss, relative) and 1e-3 of
+    each leaf's max|.|, bf16 the loss within 2e-2; (c) the paper's
+    gradient sync on a (pod=2, data=2, model=1) mesh of this card against
+    the spmd step on the same global batch (AdamW without clip, lr 1e-3;
+    f32 activations, so that only the bf16 cast separates them): loss
+    1e-4, each synced gradient leaf within 2**-7 of its max|g|,
+    parameters 5e-3; printed beside it, the bytes each rank hands the
+    ladder (f32, ``step.wire_dtype``) with the plan's modeled bytes per
+    level, and the synced gradients' error had bf16 gone through the
+    ladder's sums (the paper's wire, which the port does not carry);
+    (d) a save at step 10 through ``CheckpointManager``, restored bit for
+    bit into fresh tensors and run to step 15, against two uninterrupted
+    runs; (e) the median step seconds over steps 5-25, tokens per second
+    and ``max_memory_allocated``, for the spmd and the hier step."""
+    import copy
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.ckpt.checkpoint import (
+        CheckpointManager, latest_step, restore,
+    )
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import qcast
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist.collectives import hierarchical_psum
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import load_state, state_tree
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import LMParams, init_params
+    from repro_torch.opt import AdamW, leaves
+
+    t_phase = time.perf_counter()
+    out = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "lr": TRAIN_LR, "card": card}
+    gc.collect()
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device).manual_seed(0))
+
+    params0 = fresh()
+    n_params = sum(p.numel() for p in params0.parameters())
+    out["params"] = n_params
+    log(f"train 11: {TRAIN_ARCH} {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size} tied "
+        f"{cfg.tie_embeddings}: {n_params} parameters (f32), "
+        f"activations {cfg.activation_dtype}")
+
+    # (a) + (d) run 1 + (e): 25 steps, saving at step 10
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
+        mgr = CheckpointManager(ck, every=TRAIN_SAVE, keep=3)
+        kept = {"step": TRAIN_SAVE}
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        _, _, losses, secs = train_run(cfg, params0, device, TRAIN_STEPS,
+                                       mgr=mgr, state_tree=state_tree,
+                                       keep=kept)
+        peak = torch.cuda.max_memory_allocated(device)
+        drop = losses[0] - losses[-1]
+        out["a"] = dict(losses=losses, first=losses[0], final=losses[-1],
+                        drop=drop)
+        log(f"train 11a: {TRAIN_STEPS} spmd steps, loss {losses[0]:.6f} "
+            f"-> {losses[-1]:.6f} (drop {drop:.6f}, bound >= 0.5); "
+            f"every 6th: {[round(x, 4) for x in losses[::6]]}")
+        if not drop >= 0.5 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"11a: the loss does not fall: {losses}")
+        med = statistics.median(secs[5:])
+        out["e"] = dict(step_s=med, tokens_per_s=tokens / med,
+                        peak_bytes=peak, step_s_all=secs)
+        log(f"train 11e: spmd step median {med:.6f} s over steps 5-"
+            f"{TRAIN_STEPS} ({tokens / med:.1f} tokens/s), first step "
+            f"{secs[0]:.3f} s, peak max_memory_allocated {peak} B | "
+            f"{card}")
+
+        # (d) the checkpoint at step 10, restored into fresh tensors
+        at = latest_step(ck)
+        like = state_tree(params0, AdamW(lr=TRAIN_LR).init(params0), 0)
+        tree = restore(ck, TRAIN_SAVE, like, device=device)
+        got = leaves(tree)
+        equal = len(got) == len(kept["tree"]) and all(
+            a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+            for a, b in zip(got, kept["tree"]))
+        p10, o10, step10 = load_state(
+            tree, params0, AdamW(lr=TRAIN_LR).init(params0))
+        equal = equal and step10 == TRAIN_SAVE
+        del kept
+    _, _, resumed, _ = train_run(cfg, p10, device, TRAIN_RESUME_TO,
+                                 start=TRAIN_SAVE, opt_state=o10)
+    _, _, again, _ = train_run(cfg, fresh(), device, TRAIN_RESUME_TO)
+    ref_a, ref_b = losses[TRAIN_RESUME_TO - 1], again[-1]
+    spread = abs(ref_a - ref_b)
+    gap = abs(resumed[-1] - ref_a)
+    out["d"] = dict(restored_equal=equal, latest_saved=at,
+                    resumed=resumed[-1], uninterrupted=[ref_a, ref_b],
+                    spread=spread, gap=gap)
+    log(f"train 11d: saved at step {TRAIN_SAVE} (latest saved {at}), "
+        f"restored "
+        f"{'bit for bit' if equal else 'WITH DIFFERENCES'}; step "
+        f"{TRAIN_RESUME_TO} loss resumed {resumed[-1]:.9g}, uninterrupted "
+        f"{ref_a:.9g} / {ref_b:.9g} (spread {spread:.3g}, resumed gap "
+        f"{gap:.3g})")
+    if not equal:
+        raise AssertionError(f"11d: the restored state differs: {out['d']}")
+    if gap > spread:
+        raise AssertionError(f"11d: the resumed run leaves the spread of "
+                             f"two uninterrupted runs: {out['d']}")
+
+    # (b) one step at 2 layers of full width, card against host
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
+    p2 = LMParams(params0.embed, params0.unembed, params0.final_norm,
+                  list(params0.layers[:TRAIN_CPU_LAYERS]))
+    host = copy.deepcopy(p2).to("cpu")
+    batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=0).batch(0)
+    out["b"] = {}
+    for tag, c in (("f32", dataclasses.replace(
+            cfg2, activation_dtype=torch.float32)), ("bf16", cfg2)):
+        lc, _, gc_ = lm._value_and_grad(p2, c, batch)
+        lh, _, gh = lm._value_and_grad(host, c, batch)
+        lrel = abs(float(lc) - float(lh)) / abs(float(lh))
+        grel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                   for a, b in zip(gc_, gh))
+        out["b"][tag] = dict(loss_card=float(lc), loss_host=float(lh),
+                             loss_rel=lrel, grad_rel=grel)
+        log(f"train 11b {tag}: {TRAIN_CPU_LAYERS} layers at full width, "
+            f"card against host: loss {float(lc):.7f} / {float(lh):.7f} "
+            f"(rel {lrel:.3g}), gradients max |diff| / leaf max "
+            f"{grel:.3g}")
+    b32, b16 = out["b"]["f32"], out["b"]["bf16"]
+    if b32["loss_rel"] > 1e-4 or b32["grad_rel"] > 1e-3 or \
+            b16["loss_rel"] > 2e-2:
+        raise AssertionError(f"11b: card and host differ: {out['b']}")
+    del host, p2
+
+    # (c) the hierarchical bf16 gradient sync on a mesh of this card
+    mesh = make_mesh(HIER_MESH, ("pod", "data", "model"),
+                     devices=[device] * math.prod(HIER_MESH))
+    c32 = dataclasses.replace(cfg, activation_dtype=torch.float32)
+    opt = AdamW(lr=1e-3, grad_clip=0.0)
+    hier = lm.make_hier_train_step(c32, opt, mesh)
+    _, _, g_spmd = lm._value_and_grad(params0, c32, batch)
+    _, _, g_hier = hier.sync(params0, batch)
+    gworst = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(g_hier, g_spmd))
+    del g_hier
+    n_grad = sum(g.numel() for g in g_spmd)
+    buf = n_grad * torch.finfo(hier.wire_dtype).bits // 8
+    # the paper's wire, bf16 through the ladder's sums: the same casts as
+    # the step's, reduced in bf16; printed, not held
+    ndp = hier.topology.n_data
+    rows = TRAIN_BATCH // ndp
+    ranks = [lm._value_and_grad(params0, c32, {
+        k: v[r * rows:(r + 1) * rows] for k, v in batch.items()})[2]
+        for r in range(ndp)]
+    casts = [qcast([g[j] for g in ranks], torch.bfloat16, adaptive=True)
+             for j in range(len(g_spmd))]
+    del ranks
+    summed = hierarchical_psum(
+        [torch.cat([c[r].reshape(-1) for c, _ in casts]) for r in range(ndp)],
+        hier.topology, mode="hier")[0]
+    cerr, start = [], 0
+    for (_, inv), b in zip(casts, g_spmd):
+        a = summed[start:start + b.numel()].reshape(b.shape).float() * (
+            inv[0] / ndp)
+        start += b.numel()
+        cerr.append(float((a - b).abs().max() / b.abs().max()))
+    del casts, summed, g_spmd
+    p_s, _, m_s = lm.make_train_step(c32, opt)(params0, opt.init(params0),
+                                               batch)
+    p_h, _, m_h = hier(params0, opt.init(params0), batch)
+    dloss = abs(float(m_s["loss"]) - float(m_h["loss"]))
+    dpar = max(float((a - b).abs().max())
+               for a, b in zip(leaves(p_s), leaves(p_h)))
+    del p_s, p_h
+    over = sum(e > 2 ** -7 for e in cerr)
+    out["c"] = dict(mesh=dict(mesh.shape), loss_spmd=float(m_s["loss"]),
+                    loss_hier=float(m_h["loss"]), dloss=dloss,
+                    grad_rel=gworst, dparams=dpar,
+                    bf16_ladder_grad_rel=max(cerr),
+                    bf16_ladder_leaves_over=over)
+    log(f"train 11c: hier on {dict(mesh.shape)} of the card against spmd: "
+        f"loss {float(m_s['loss']):.7f} / {float(m_h['loss']):.7f} (diff "
+        f"{dloss:.3g}, bound 1e-4), synced gradients max |diff| / leaf "
+        f"max|g| {gworst:.4g} (bound 2**-7 = {2 ** -7:.4g}), parameters "
+        f"max |diff| {dpar:.3g} (bound 5e-3); had bf16 gone through the "
+        f"ladder's sums (not the port's wire, not held): {max(cerr):.4g}, "
+        f"{over} of {len(cerr)} leaves over 2**-7")
+    axes = [lv.axis for lv in hier.topology.levels]
+    log(f"train 11c: each rank hands the ladder {buf} B ({n_grad} values "
+        f"of {hier.wire_dtype}); modeled bytes per level "
+        f"(plan.level_bytes): "
+        f"{dict(zip(axes, hier.plan.level_bytes(buf)))}")
+    log("train 11c: " + hier.topology.describe().replace("\n", " | ")
+        + " || " + hier.plan.describe().replace("\n", " | "))
+    if dloss > 1e-4 or gworst > 2 ** -7 or dpar > 5e-3:
+        raise AssertionError(f"11c: hier and spmd differ: {out['c']}")
+
+    # (e) the hier step's time, default bf16 activations
+    hier16 = lm.make_hier_train_step(cfg, AdamW(lr=TRAIN_LR), mesh)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    p, st = params0, AdamW(lr=TRAIN_LR).init(params0)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    hsecs, hl = [], []
+    for s in range(TRAIN_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        p, st, m = hier16(p, st, stream.batch(s))
+        hl.append(float(m["loss"]))
+        torch.cuda.synchronize(device)
+        hsecs.append(time.perf_counter() - t0)
+    hpeak = torch.cuda.max_memory_allocated(device)
+    hmed = statistics.median(hsecs[5:])
+    out["e"]["hier"] = dict(step_s=hmed, tokens_per_s=tokens / hmed,
+                            peak_bytes=hpeak, step_s_all=hsecs, losses=hl)
+    log(f"train 11e: hier step on {dict(mesh.shape)} of the card median "
+        f"{hmed:.6f} s over steps 5-{TRAIN_STEPS} "
+        f"({tokens / hmed:.1f} tokens/s), peak max_memory_allocated "
+        f"{hpeak} B, losses {[round(x, 4) for x in hl]} | {card}")
+    if not all(map(math.isfinite, hl)):
+        raise AssertionError(f"11e: the hier step diverges: {hl}")
+    del p, st, params0
+    gc.collect()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"train phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def dev_us(e):
     """Device time of one ``key_averages()`` row, in microseconds."""
     return getattr(e, "self_device_time_total", None) or getattr(
@@ -2340,7 +2646,11 @@ def main():
 
     phase("phase 2a: the kernel sweep")
     sweep_errs = check_sweep(device)
-    geo, a, plan = build_problem(N, ANGLES)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    mesh_build = []
+    geo, a, plan = build_problem(
+        N, ANGLES, beside=lambda g, m: mesh_build.append(
+            pool.submit(build_mesh_plan, g, m)))
     phase("phase 2b: the n=512 shards")
     shard_errs = check_shards(plan, device)
     phase("phase 3: the main path")
@@ -2362,7 +2672,8 @@ def main():
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
     phase("phase 6: the exchange over a mesh")
-    plan4, mesh_tables = build_mesh_plan(geo, a)
+    plan4, mesh_tables = mesh_build[0].result()
+    pool.shutdown()
     mesh_errs, mesh_shards = check_mesh_shards(plan4, device)
     xs.reset_launches()
     mesh_checks, mesh_solves = mesh_path(plan, plan4, a, device, runs)
@@ -2430,6 +2741,12 @@ def main():
     if any(xs.LAUNCHES.values()):
         raise AssertionError(f"the LM path launched an SpMM kernel: "
                              f"{dict(xs.LAUNCHES)}")
+    phase("phase 11: LM training")
+    xs.reset_launches()
+    train = train_path(device, card)
+    if any(xs.LAUNCHES.values()):
+        raise AssertionError(f"the training path launched an SpMM kernel: "
+                             f"{dict(xs.LAUNCHES)}")
     kernels = []
     for key, name, replaces in KERNELS:
         kernels.append(entry(
@@ -2445,6 +2762,7 @@ def main():
     kernels[0]["serve"] = serve
     kernels[0]["dry_run"] = dry
     kernels[0]["lm"] = lm
+    kernels[0]["train"] = train
     phase("done")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -152,7 +152,8 @@ def restore(directory: str, step: int, like, *, device=None):
         if device is not None:
             import torch
 
-            arr = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+            # asarray keeps a 0-d leaf 0-d (ascontiguousarray makes it 1-d)
+            arr = torch.from_numpy(np.asarray(arr, order="C")).to(device)
         out.append(arr)
     return _unflatten(treedef, out)
 

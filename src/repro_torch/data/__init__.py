@@ -1,1 +1,2 @@
-"""XCT phantoms and measurement simulation."""
+"""Data: XCT phantoms and measurement simulation (``phantom``), and the
+LM training slice's synthetic token stream (``tokens``)."""

@@ -24,7 +24,8 @@ per-rank tensors, one process driving every rank of a
 Submodules:
   topology     Topology / CommPlan / Level (the ladder engine)
   collectives  the reductions and the sparse exchange over rank lists
-  fault        stragglers, rebalancing, checkpoint cadence
+  fault        stragglers, rebalancing, checkpoint cadence, remesh
+  sharding     the LM's parameter / batch / cache specs on a mesh
 """
 from .collectives import (  # noqa: F401
     hierarchical_psum,

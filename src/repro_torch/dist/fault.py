@@ -2,16 +2,15 @@
 
 At the paper's scale (thousands of GPUs, day-long campaigns) the failure
 model stops being "a node might die" and becomes "some node is always
-slow".  This module provides the host-side substrate (``remesh``, the
-reference's re-sharding of a checkpoint onto another mesh, waits for the
-port of ``dist/sharding.py``: ROADMAP.md):
+slow".  This module provides the host-side substrate:
 
   * :class:`StragglerMonitor` -- robust (median/MAD) detection of workers
     whose recent step times fall out of the population;
   * :func:`rebalance` -- shrink a straggler's contiguous slice range and
     redistribute, conserving total work;
   * :func:`suggest_checkpoint_period` -- Young/Daly optimal checkpoint
-    interval as the system MTBF shrinks with node count.
+    interval as the system MTBF shrinks with node count;
+  * :func:`remesh` -- re-place a restored checkpoint onto another mesh.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ import math
 __all__ = [
     "StragglerMonitor",
     "rebalance",
+    "remesh",
     "suggest_checkpoint_period",
 ]
 
@@ -109,6 +109,26 @@ def rebalance(ranges: dict, stragglers, shed: float = 0.5) -> dict:
         out[k] = (start, start + sizes[k])
         start += sizes[k]
     return out
+
+
+def remesh(tree, specs, mesh):
+    """Re-place a (restored) tree onto ``mesh`` per ``specs``
+    (``dist.sharding.param_specs`` and friends).
+
+    Values are preserved exactly; only placement changes.  This is the
+    elastic-restart path: save on mesh A, lose nodes, restore host-side
+    (``ckpt.checkpoint.restore``), ``remesh`` onto mesh B.  ``tree`` is a
+    tree of dicts and lists (or an ``nn.Module``, as its parameters by
+    name) whose leaves are arrays, tensors or ``sharding.Placed``;
+    returns the same tree of ``sharding.Placed``.
+    """
+    from ..opt.tree import tree_map
+    from .sharding import Placed, _as_tree, shardings
+
+    def place(x, pl):
+        return pl.place(x.full() if isinstance(x, Placed) else x)
+
+    return tree_map(place, _as_tree(tree), shardings(specs, mesh))
 
 
 def suggest_checkpoint_period(

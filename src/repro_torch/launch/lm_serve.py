@@ -41,6 +41,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+@torch.no_grad()
 def serve(params, cfg, prompts, n_gen: int, gen: torch.Generator) -> dict:
     """Prefill ``prompts``, then ``n_gen - 1`` greedy decode steps (a stub
     frontend's steps read fresh embeddings from ``gen``).  Returns the

@@ -69,16 +69,41 @@ def _conv1d(x, w, state=None, *, f32_sum: bool = False):
 
 
 def _lru_scan(a, b, h0=None):
-    """h_t = a_t h_{t-1} + b_t over time; a, b [B,T,R]."""
+    """h_t = a_t h_{t-1} + b_t over time; a, b [B,T,R].
+
+    In ``jax.lax.associative_scan``'s order: pairs of neighbours combine
+    (``(a_l a_r, a_r b_l + b_r)``), the pairs scan recursively, and the
+    even elements combine with the scanned odd ones, so every sum rounds
+    as the reference's does."""
     if h0 is not None:
-        b = b.clone()
-        b[:, 0] = b[:, 0] + a[:, 0] * h0
-    h = b[:, 0]
-    out = [h]
-    for i in range(1, a.shape[1]):
-        h = a[:, i] * h + b[:, i]
-        out.append(h)
-    return torch.stack(out, dim=1)
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    return _assoc_scan(a, b)[1]
+
+
+def _assoc_scan(a, b):
+    """The scan of the pairs ``(a, b)`` along dim 1, recursively."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    al, bl, ar, br = a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]
+    oa, ob = _assoc_scan(al * ar, ar * bl + br)
+    a2, b2 = a[:, 2::2], b[:, 2::2]
+    if n % 2 == 0:
+        oa_, ob_ = oa[:, :-1], ob[:, :-1]
+    else:
+        oa_, ob_ = oa, ob
+    ea = torch.cat([a[:, :1], oa_ * a2], dim=1)
+    eb = torch.cat([b[:, :1], a2 * ob_ + b2], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _interleave(even, odd):
+    """Elements ``even[0], odd[0], even[1], odd[1], ...`` along dim 1."""
+    n = even.shape[1] + odd.shape[1]
+    out = torch.stack([even[:, :odd.shape[1]], odd], dim=2).flatten(1, 2)
+    if n % 2:
+        out = torch.cat([out, even[:, -1:]], dim=1)
+    return out
 
 
 def rglru_apply(p, x, *, cfg, cache=None, mode="train"):

@@ -31,9 +31,16 @@ class LMParams(nn.Module):
     inputs are embeddings), ``unembed`` ([D, V], ``None`` when tied to
     ``embed``), ``final_norm`` and ``layers`` (one ``nn.ModuleDict`` per
     layer: ``ln1``, the block under its kind's name, and ``ln2`` /
-    ``mix`` where the block has a channel mixer)."""
+    ``mix`` where the block has a channel mixer).
 
-    def __init__(self, embed, unembed, final_norm, layers):
+    Every parameter is made frozen (``requires_grad=False``), so serving
+    builds no autograd graph; training asks for gradients on the copies
+    it differentiates (``models.lm.make_train_step``).  ``stack`` is
+    ``(n_per, period)``: the first ``n_per * period`` layers are the ones
+    the reference stacks into ``n_per`` periods under its scan
+    (``dist.sharding.param_specs`` reads it; ``(0, 1)``: none)."""
+
+    def __init__(self, embed, unembed, final_norm, layers, stack=(0, 1)):
         super().__init__()
         frozen = (lambda t: None if t is None
                   else nn.Parameter(t, requires_grad=False))
@@ -41,6 +48,7 @@ class LMParams(nn.Module):
         self.unembed = frozen(unembed)
         self.final_norm = final_norm
         self.layers = nn.ModuleList(layers)
+        self.stack = tuple(stack)
 
 
 # --------------------------------------------------------------------- #
@@ -80,7 +88,13 @@ def init_params(cfg, gen: torch.Generator) -> LMParams:
         unembed = L.dense_init(gen, (cfg.d_model, cfg.vocab_size))
     final_norm = L.norm_init(cfg.d_model, cfg.norm, gen.device)
     layers = [_layer_init(gen, kind, cfg) for kind in cfg.pattern_kinds]
-    return LMParams(embed, unembed, final_norm, layers)
+    return LMParams(embed, unembed, final_norm, layers, stack=_stack(cfg))
+
+
+def _stack(cfg) -> tuple:
+    """``(n_per, period)``: the reference's scanned periods."""
+    period = len(cfg.block_pattern)
+    return cfg.n_layers // period, period
 
 
 def _load_block(tree, device) -> nn.ModuleDict:
@@ -123,7 +137,8 @@ def params_from_reference(tree, cfg, device="cpu") -> LMParams:
 
     final_norm = L.params(**{k: torch.as_tensor(v, device=device)
                              for k, v in tree["final_norm"].items()})
-    return LMParams(t("embed"), t("unembed"), final_norm, layers)
+    return LMParams(t("embed"), t("unembed"), final_norm, layers,
+                    stack=_stack(cfg))
 
 
 def _index(tree, i):
@@ -182,13 +197,23 @@ def _residual_norm(p, x, a, cfg):
     norm reads the sum before it is rounded: XLA fuses the reference's
     ``(x + a).astype(f32)`` into one f32 add and drops the round trip
     through the activation dtype."""
-    s = x.to(torch.float32) + a.to(torch.float32)
+    s = _add32(x, a)
     return s.to(x.dtype), L.norm_apply(p, s, cfg.norm_eps).to(x.dtype)
 
 
-def _layer_apply(kind, p, x, *, cfg, positions, cache, mode):
+def _add32(x, a):
+    """``x + a`` of two activation-dtype tensors, in f32 and not rounded."""
+    return x.to(torch.float32) + a.to(torch.float32)
+
+
+def _layer_apply(kind, p, x, *, cfg, positions, cache, mode, xs=None):
+    """One layer.  ``x`` is the residual stream in the activation dtype;
+    ``xs``, when given, is the same sum before it was rounded, which the
+    first norm reads in its place (see :func:`forward`).  Returns ``(x,
+    cache, aux, xs)``: the new stream, rounded and not."""
     aux = 0.0
-    h = L.norm_apply(p["ln1"], x, cfg.norm_eps)
+    h = L.norm_apply(p["ln1"], x if xs is None else xs,
+                     cfg.norm_eps).to(x.dtype)
     if kind in ("attn", "local"):
         a, c = L.attn_apply(
             p["attn"], h, cfg=cfg, positions=positions, cache=cache,
@@ -199,26 +224,33 @@ def _layer_apply(kind, p, x, *, cfg, positions, cache, mode):
             m, aux = moe_apply(p["mix"], h2, cfg=cfg)
         else:
             m = L.mlp_apply(p["mix"], h2, cfg=cfg)
-        x = x + m
     elif kind == "rglru":
         a, c = rglru_apply(p["rglru"], h, cfg=cfg, cache=cache, mode=mode)
         x, h2 = _residual_norm(p["ln2"], x, a, cfg)
-        x = x + L.mlp_apply(p["mix"], h2, cfg=cfg)
+        m = L.mlp_apply(p["mix"], h2, cfg=cfg)
     elif kind == "mlstm":
-        a, c = mlstm_apply(p["mlstm"], h, cfg=cfg, cache=cache, mode=mode)
-        x = x + a
+        m, c = mlstm_apply(p["mlstm"], h, cfg=cfg, cache=cache, mode=mode)
     elif kind == "slstm":
-        a, c = slstm_apply(p["slstm"], h, cfg=cfg, cache=cache, mode=mode)
-        x = x + a
+        m, c = slstm_apply(p["slstm"], h, cfg=cfg, cache=cache, mode=mode)
     else:
         raise ValueError(kind)
-    return x, c, aux
+    xs = _add32(x, m)
+    return xs.to(x.dtype), c, aux, xs
 
 
-@torch.no_grad()
 def forward(params: LMParams, cfg, inputs, *, positions, cache=None,
             mode="train", last_token_only: bool = False):
-    """Run the decoder.
+    """Run the decoder (differentiable: it builds an autograd graph only
+    where a parameter asks for gradients, which serving's never do).
+
+    The residual stream rounds to the activation dtype after each add,
+    and a norm reads the sum before that rounding, as XLA compiles the
+    reference's ``norm(x + a)`` (the ``astype(f32)`` of a bf16 add reads
+    its f32 result), except across the reference's scan: its carry, the
+    stream at the end of each full period of ``cfg.block_pattern``, is
+    stored rounded, so the next period's first norm reads the rounded
+    stream.  The final norm reads the last add unrounded when the
+    reference's trailing partial period ran last.
 
     Args:
       inputs: int tokens [B, T] (``cfg.embed_inputs``) or precomputed
@@ -243,17 +275,23 @@ def forward(params: LMParams, cfg, inputs, *, positions, cache=None,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = []
+    n_per, period = _stack(cfg)
+    xs = None
     for i, (kind, p) in enumerate(zip(cfg.pattern_kinds, params.layers)):
-        x, c, aux = _layer_apply(
+        x, c, aux, xs = _layer_apply(
             kind, p, x, cfg=cfg, positions=positions,
-            cache=None if cache is None else cache[i], mode=mode,
+            cache=None if cache is None else cache[i], mode=mode, xs=xs,
         )
+        if i < n_per * period and (i + 1) % period == 0:
+            xs = None  # the scan's carry is stored rounded
         aux_total = aux_total + aux
         new_cache.append(c)
 
+    if xs is not None:
+        x = xs
     if last_token_only:
         x = x[:, -1:]
-    x = L.norm_apply(params.final_norm, x, cfg.norm_eps)
+    x = L.norm_apply(params.final_norm, x, cfg.norm_eps).to(adt)
     w = params.embed.T if params.unembed is None else params.unembed
     logits = (x @ w.to(adt)).to(torch.float32)
     out_cache = new_cache if mode in ("prefill", "decode") else None

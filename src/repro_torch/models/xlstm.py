@@ -86,11 +86,14 @@ def mlstm_apply(p, x, *, cfg, cache=None, mode="train"):
     cv, conv_state = _conv1d(
         up, p["conv"], None if cache is None else cache["conv"]
     )
-    cv = silu(cv)
+    # silu's last multiply, left in f32: the reference's
+    # ``cv.astype(f32) @ w_if`` reads it so as XLA compiles it
+    cv32 = cv.to(torch.float32) * sigmoid(cv).to(torch.float32)
+    cv = cv32.to(adt)
     q = (cv @ p["wq"].to(adt)).reshape(b, t, nh, hd)
-    k = (cv @ p["wk"].to(adt)).reshape(b, t, nh, hd) / math.sqrt(hd)
+    k = (cv @ p["wk"].to(adt)).reshape(b, t, nh, hd)
     v = (up @ p["wv"].to(adt)).reshape(b, t, nh, hd)
-    gif = cv.to(torch.float32) @ p["w_if"] + p["b_if"]
+    gif = cv32 @ p["w_if"] + p["b_if"]
     ig, fg = gif[..., :nh], gif[..., nh:]  # [B,T,H]
 
     if cache is None:
@@ -100,7 +103,9 @@ def mlstm_apply(p, x, *, cfg, cache=None, mode="train"):
     else:
         state = (cache["C"], cache["n"], cache["m"])
 
-    qf, kf, vf = (z.to(torch.float32) for z in (q, k, v))
+    # the reference's ``k / sqrt(hd)`` reaches its astype(f32) unrounded
+    qf, vf = q.to(torch.float32), v.to(torch.float32)
+    kf = k.to(torch.float32) / math.sqrt(hd)
     steps = 1 if mode == "decode" else t
     hs = []
     for i in range(steps):

@@ -1,6 +1,7 @@
-"""LM serving on the card: the cache invariant of every architecture, the
-sliding window past its wrap, and the card against the port's CPU path
-on the same weights.
+"""LM serving and training on the card: the cache invariant of every
+architecture, the sliding window past its wrap, the card against the
+port's CPU path on the same weights (a prefill; a train step), the
+hierarchical gradient sync on a mesh of one card, and the training CLI.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA
 device is present.  The file imports no JAX, so it runs on the GPU
@@ -16,9 +17,14 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.data.tokens import TokenStream
 from repro_torch.launch import lm_serve
+from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import lm
 from repro_torch.models.lm import decode_step, prefill
 from repro_torch.models.transformer import forward, init_params
+from repro_torch.opt import AdamW, leaves
 
 B, T = 2, 24
 
@@ -94,3 +100,72 @@ def test_cuda_cli_serves(cuda, capsys):
                          "--prompt-len", "8", "--gen", "4"])
     assert gen.shape == (2, 4) and gen.dtype == np.int32
     assert "tok/s" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["smollm-135m", "moonshot-v1-16b-a3b",
+                                  "recurrentgemma-9b", "xlstm-350m"])
+def test_cuda_train_step_matches_the_cpu_path(cuda, name):
+    """One train step's loss and gradients on the card against the host,
+    the same weights and batch: f32 activations, the loss within 1e-4
+    (relative) and every gradient leaf within 1e-3 of its max|.|; bf16,
+    the loss within 2e-2."""
+    cfg = get_config(name, smoke=True, moe_capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(3))
+    host = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(3)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (B, T)).astype(
+        np.int32)}
+    batch["inputs"] = (batch["labels"] if cfg.embed_inputs else
+                       rng.standard_normal((B, T, cfg.d_model)).astype(
+                           np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, activation_dtype=dtype)
+        lc, _, gc = lm._value_and_grad(params, c, batch)
+        lh, _, gh = lm._value_and_grad(host, c, batch)
+        assert all(g.device.type == "cuda" for g in gc)
+        rel = abs(float(lc) - float(lh)) / abs(float(lh))
+        if dtype == torch.float32:
+            assert rel <= 1e-4, rel
+            for a, b in zip(gc, gh):
+                assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
+                    b.abs().max())
+        else:
+            assert rel <= 2e-2, rel
+
+
+@pytest.mark.gpu
+def test_cuda_hier_step_on_one_card(cuda):
+    """``make_hier_train_step`` on a (pod=2, data=2, model=1) mesh whose
+    four ranks share the card, against the spmd step on the same global
+    batch (f32 activations): loss 1e-4, each synced gradient leaf within
+    2**-7 of its max|g|, parameters 5e-3."""
+    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                              activation_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(4))
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"),
+                     devices=[cuda] * 4)
+    batch = TokenStream(cfg.vocab_size, 32, 8, seed=4).batch(0)
+    opt = AdamW(lr=1e-3, grad_clip=0.0)
+    hier = lm.make_hier_train_step(cfg, opt, mesh)
+    _, _, g1 = lm._value_and_grad(params, cfg, batch)
+    _, _, g2 = hier.sync(params, batch)
+    for a, b in zip(g2, g1):
+        assert a.device.type == "cuda"
+        assert float((a - b).abs().max()) <= 2 ** -7 * float(b.abs().max())
+    p1, _, m1 = lm.make_train_step(cfg, opt)(params, opt.init(params), batch)
+    p2, _, m2 = hier(params, opt.init(params), batch)
+    assert abs(float(m1["loss"]) - float(m2["loss"])) < 1e-4
+    assert max(float((a - b).abs().max())
+               for a, b in zip(leaves(p1), leaves(p2))) < 5e-3
+
+
+@pytest.mark.gpu
+def test_cuda_cli_trains(cuda, capsys):
+    """``python -m repro_torch.launch.train --steps 3`` on the card."""
+    losses = train_cli.main(["--arch", "smollm-135m", "--smoke", "--steps",
+                             "3", "--batch", "4", "--seq", "32",
+                             "--log-every", "1"])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    out = capsys.readouterr().out
+    assert "final loss" in out and "step     2" in out

@@ -300,7 +300,37 @@ def _activations_case(dtype):
             (tl.softplus(xt.float()), jax.nn.softplus(xj.astype(jnp.float32)))]
 
 
+def _layer_case(arch, kind):
+    """One whole layer (``_layer_apply``: the block between its norms and
+    residual adds) in train and prefill mode, as the reference's layer
+    compiles alone: its input and output in the activation dtype."""
+    def run(dtype):
+        jc, tc = configs(arch, dtype, max_cache=T + 4,
+                         moe_capacity_factor=8.0)
+        jp = jt._layer_init(jax.random.PRNGKey(10), kind, jc)
+        tp = tt._load_block(jax.tree.map(np.asarray, jp), "cpu")
+        x = _x(jc)
+        jd, td = DTYPES[dtype]
+        pos = positions(T)
+        out = []
+        for mode in ("train", "prefill"):
+            jy = jax.jit(lambda p, x, m=mode: jt._layer_apply(
+                kind, p, x, cfg=jc, positions=pos, cache=None, mode=m)[0])(
+                jp, jnp.asarray(x, jd))
+            ty = tt._layer_apply(kind, tp, torch.from_numpy(x).to(td),
+                                 cfg=tc, positions=torch.from_numpy(pos),
+                                 cache=None, mode=mode)[0]
+            out.append((ty, jy))
+        return out
+    return run
+
+
 LAYER_CASES = {
+    "layer-rglru": _layer_case("recurrentgemma-9b", "rglru"),
+    "layer-local": _layer_case("recurrentgemma-9b", "local"),
+    "layer-mlstm": _layer_case("xlstm-350m", "mlstm"),
+    "layer-slstm": _layer_case("xlstm-350m", "slstm"),
+    "layer-attn-moe": _layer_case("moonshot-v1-16b-a3b", "attn"),
     "attn-rope-qknorm": _attn_case("qwen3-4b"),
     "attn-qkv-bias": _attn_case("codeqwen1.5-7b"),
     "attn-mrope": _attn_case("qwen2-vl-7b"),
@@ -354,3 +384,106 @@ def test_forward_matches_reference(name, dtype):
     assert keep.mean() >= 1 - MAX_TIED, first
     err = np.abs(got - want).max(-1)[keep].max() / np.abs(want).max()
     assert err <= TOL[dtype], (name, dtype, err, first)
+
+
+# --------------------------------------------------------------------- #
+# where the bf16 bits hold (ROADMAP.md queue 3, fault A)
+# --------------------------------------------------------------------- #
+# cases whose every activation-dtype output is the reference's, bit for
+# bit: the norms, the MLPs, the recurrent blocks alone and as whole
+# layers (the residual adds and the norms that read them unrounded), the
+# attention cases but MHA's and the sinusoidal one (XLA:CPU's f32 exp in
+# the softmax is not torch's, and its last bits reach a bf16 rounding
+# there)
+BITS_HOLD = ("activations", "attn-local-window", "attn-mrope",
+             "attn-rope-qknorm", "layer-local", "layer-mlstm", "layer-rglru",
+             "layer-slstm", "layernorm", "mlp-gated-gelu", "mlp-gated-silu",
+             "mlp-plain-gelu", "mlstm", "moe-top2", "moe-top2-of-8", "rglru",
+             "rmsnorm", "rope-mrope-sinusoidal", "slstm")
+
+
+@pytest.mark.parametrize("case", BITS_HOLD)
+def test_bf16_outputs_hold_the_reference_bits(case):
+    n = 0
+    for i, (got, want) in enumerate(LAYER_CASES[case]("bf16")):
+        if torch.is_tensor(got) and got.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(
+                got.to(torch.float32).numpy(),
+                np.asarray(want, np.float32), err_msg=f"{case} output {i}")
+            n += 1
+    assert n, case
+
+
+def _forward_err(name, n_layers=None):
+    """max |port - reference| / max|reference| of the bf16 train-mode
+    logits, the reference's default compile (``scan_layers=True``)."""
+    kw = {} if n_layers is None else {"n_layers": n_layers}
+    jc, tc = configs(name, "bf16", max_cache=T + 8, moe_capacity_factor=8.0,
+                     **kw)
+    jp = jt.init_params(jc, jax.random.PRNGKey(0))
+    tp = tt.params_from_reference(jax.tree.map(np.asarray, jp), tc)
+    x = inputs(jc, T + 1)
+    pos = positions(T + 1)
+    want = np.asarray(jax.jit(lambda p, x: jt.forward(
+        p, jc, x, positions=pos, mode="train")[0])(jp, x))
+    with torch.no_grad():
+        got = tt.forward(tp, tc, torch.from_numpy(x),
+                         positions=torch.from_numpy(pos))[0].numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("name,n_layers", [
+    ("smollm-135m", None), ("musicgen-large", None),
+    ("moonshot-v1-16b-a3b", None), ("xlstm-350m", None),
+    ("recurrentgemma-9b", 3), ("recurrentgemma-9b", 4)])
+def test_bf16_forward_holds_the_reference_bits(name, n_layers):
+    """The full bf16 forward, bit for bit, where every block's bits hold:
+    xlstm's mLSTM / sLSTM period and recurrentgemma's first period (its
+    norms reading the residual sums unrounded inside the scan's period,
+    rounded across its carry) and the first layer after it."""
+    assert _forward_err(name, n_layers) == 0.0
+
+
+def test_recurrentgemma_at_its_real_depth():
+    """recurrentgemma-9b at its published 38 layers (12 scanned periods +
+    2), SMOKE width, bf16: within the bound.  Past the first period the
+    f32 gates (XLA:CPU's exp, sigmoid and softplus are not torch's) move
+    a bf16 rounding now and then; ROADMAP.md logs the value."""
+    assert _forward_err("recurrentgemma-9b", 38) <= TOL["bf16"]
+
+
+def test_bf16_decode_against_forward_no_worse_than_the_reference():
+    """Fault B at a cut width (qwen3-4b's blocks at d_model 512, 4 layers,
+    vocab 8192; batch 4, 32-token prefill): the port's bf16 decode step
+    against its own forward differs no more than the reference's does.
+    ROADMAP.md holds the full-width table, which this width cannot see:
+    there the reference leaves ``allclose(2e-2, 2e-2)`` from 4 layers,
+    the port from 2."""
+    from repro.models import lm as jlm
+    from repro_torch.models import lm as tlm
+
+    kw = dict(n_layers=4, d_model=512, n_heads=4, n_kv_heads=2, d_ff=1536,
+              vocab_size=8192, max_cache=40)
+    jc = dataclasses.replace(ref_config("qwen3-4b"), **kw)
+    tc = dataclasses.replace(get_config("qwen3-4b"), **kw)
+    jp = jt.init_params(jc, jax.random.PRNGKey(0))
+    tp = tt.params_from_reference(jax.tree.map(np.asarray, jp), tc)
+    b, p = 4, 32
+    x = np.random.default_rng(0).integers(0, jc.vocab_size,
+                                          (b, p + 1)).astype(np.int32)
+    pos = np.ascontiguousarray(np.broadcast_to(
+        np.arange(p + 1, dtype=np.int32), (b, p + 1)))
+    jf = np.asarray(jax.jit(lambda q, x: jt.forward(
+        q, jc, x, positions=pos, mode="train")[0])(jp, x))[:, p]
+    _, jcache = jax.jit(lambda q, x: jlm.prefill(q, jc, x))(jp, x[:, :p])
+    _, _, jd = jax.jit(lambda q, c, t: jlm.decode_step(
+        q, jc, c, t, jnp.int32(p)))(jp, jcache, x[:, p:])
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        tf = tt.forward(tp, tc, xt, positions=torch.from_numpy(pos))[0][:, p]
+        _, cache = tlm.prefill(tp, tc, xt[:, :p])
+        td = tlm.decode_step(tp, tc, cache, xt[:, p:], p)[2]
+    ref_gap = float(np.abs(np.asarray(jd) - jf).max())
+    port_gap = float((td - tf).abs().max())
+    assert ref_gap > 0  # the reference's own decode leaves its forward
+    assert port_gap <= ref_gap, (port_gap, ref_gap)

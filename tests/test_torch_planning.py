@@ -399,4 +399,4 @@ def test_rebalance_and_checkpoint_period_identical():
                               (60, 0, 1e5), (1e-3, 4096, 8.64e4)):
         assert tfault.suggest_checkpoint_period(cost, nodes, mtbf) == \
             jfault.suggest_checkpoint_period(cost, nodes, mtbf)
-    assert tfault.__all__ == [n for n in jfault.__all__ if n != "remesh"]
+    assert tfault.__all__ == jfault.__all__
