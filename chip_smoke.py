@@ -101,7 +101,9 @@ Phases, each fatal on failure:
    at its full published width and depth from seeded weights on the
    card: (a) the cache invariant (prefill 32 tokens, decode token 32,
    against the forward over 33) held to the reference's bound with f32
-   activations and measured in bf16; (b) the first two layers, copied
+   activations and measured in bf16, with the count of layer 0's
+   q-projection outputs that cuBLAS rounds differently for the decode's
+   4 rows alone than inside the forward's 132; (b) the first two layers, copied
    to the host, against the card: bf16 prefill logits within 2e-2 of
    max|.| and equal f32 greedy tokens; (c) every architecture's SMOKE
    config on the card, the cache invariant in bf16 and recurrentgemma's
@@ -119,7 +121,22 @@ Phases, each fatal on failure:
    checkpoint at step 10 restored bit for bit and resumed to step 15
    within the spread of two uninterrupted runs; (e) step seconds,
    tokens per second and peak memory of the spmd and hier steps beside
-   the card's name and power limit.  No SpMM kernel may launch here.
+   the card's name and power limit.  No SpMM kernel may launch here;
+12. the LM dry run (``launch.dryrun.lower_lm_cell``, ``core.lowering``):
+   (a) ``remat`` on the card: smollm-135m at full width, one step's loss
+   and gradients on 2 x 4096 tokens under ``"none"``, ``"full"`` and
+   ``"dots"``, equal bit for bit, with each one's peak memory; (b) the
+   same three programs, phase 10's qwen3-4b prefill (4 x 32) and decode
+   step and phase 11's spmd step, each traced on one placeholder: the
+   argument bytes must equal those bound on the card and the traced peak
+   lie within 10% of ``max_memory_allocated``; (c) on the host, in
+   processes of their own started before phase 10: qwen3-4b
+   ``train_4k`` (one pod and two), ``prefill_32k`` and ``decode_32k``,
+   smollm-135m ``train_4k``, recurrentgemma-9b ``long_500k`` and
+   xlstm-350m ``train_4k`` (time FD), each ``ok``, with the busiest
+   rank's and rank 0's peak against the card, the bytes between devices
+   by link class, the dominant roofline term and the trace's seconds
+   (printed, kept out of the kernels line).  No SpMM kernel may launch.
 
 At f32/f32 row 1 must equal its plain version bit for bit (phase 2):
 both round the step once, as one fused multiply-add.
@@ -1858,6 +1875,27 @@ def lm_path(device):
             f"abs difference {err:.6g} (max |logit| "
             f"{out['a'][tag]['ref_max']:.4g}), allclose(rtol=2e-2, "
             f"atol=2e-2) {'holds' if ok else 'does not hold'}")
+    # the cause of the bf16 gap on the CPU (ROADMAP.md, fault B): a GEMM
+    # whose rounding of a row depends on the call's row count; here
+    # cuBLAS's, at layer 0's q projection, the decode's 4 rows alone
+    # against the same rows inside the forward's 132 (measured, not held:
+    # the reference has no counterpart on the card)
+    from repro_torch.models import layers as L
+
+    with torch.no_grad():
+        p0 = params.layers[0]
+        x0 = params.embed[toks].to(cfg.activation_dtype)
+        h = L.norm_apply(p0["ln1"], x0, cfg.norm_eps)
+        q_all = L.dot(h, p0["attn"]["wq"])
+        q_dec = L.dot(h[:, LM_PROMPT:LM_PROMPT + 1].contiguous(),
+                      p0["attn"]["wq"])
+        differ = int((q_dec != q_all[:, LM_PROMPT:LM_PROMPT + 1]).sum())
+    out["a"]["bf16"]["q_rows_differ"] = differ
+    out["a"]["bf16"]["q_outputs"] = q_dec.numel()
+    log(f"lm 10a bf16: layer 0's q projection on cuBLAS, the decode's "
+        f"{LM_BATCH} rows alone against the same rows inside the forward's "
+        f"{LM_BATCH * (LM_PROMPT + 1)}: {differ} of {q_dec.numel()} outputs "
+        f"differ in their bits")
     a32 = out["a"]["f32"]
     if a32["max_abs"] > 2e-2 or not (a32["finite"]
                                      and out["a"]["bf16"]["finite"]):
@@ -2226,6 +2264,268 @@ def train_path(device, card):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"train phase: {out['phase_s']:.1f} s")
     return out
+
+
+# phase 12c's cells: (arch, shape, multi_pod), traced on the host
+LM_DRY_CELLS = (("qwen3-4b", "train_4k", False),
+                ("qwen3-4b", "prefill_32k", False),
+                ("qwen3-4b", "decode_32k", False),
+                ("smollm-135m", "train_4k", False),
+                ("recurrentgemma-9b", "long_500k", False),
+                ("xlstm-350m", "train_4k", False),
+                ("qwen3-4b", "train_4k", True))
+# (a): a sixteenth of a train_4k rank's rows; at 2 rows "none" does not
+# fit the card (PERF.md, PR 22)
+REMAT_BATCH, REMAT_SEQ = 1, 4096
+DRY_BAND = 0.10  # (b): traced peak against max_memory_allocated
+
+
+def start_lm_cells(tmp):
+    """Phase 12c's cells, each a ``launch.dryrun`` process of its own on
+    the host, started before the card's LM phases."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, multi in LM_DRY_CELLS:
+        out = Path(tmp) / f"{arch}_{shape}_{int(multi)}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--out", str(out)]
+        cmd += ["--multi-pod"] if multi else []
+        procs.append(((arch, shape, multi), out, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def tensor_leaves(tree):
+    """The tensors among a tree's leaves (``opt.tree``; a cache's ``pos``
+    is an int)."""
+    import torch
+
+    from repro_torch.opt import leaves
+
+    return [t for t in leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def traced_program(build, grad):
+    """``build(device, gen) -> (fn, args)`` on one placeholder under a
+    ``FakeTrace`` (``gen`` a ``layers.Unseeded``): the argument bytes and
+    the trace's peak of ``fn()``, with its seconds."""
+    from repro_torch.core.lowering import FakeTrace, storage_bytes
+    from repro_torch.models.layers import Unseeded
+    from repro_torch.placement import FakeDevice
+
+    dev = FakeDevice("cuda", 0)
+    trace = FakeTrace({dev: {}})
+    t0 = time.perf_counter()
+    with trace.binding():
+        fn, args = build(dev, Unseeded(dev))
+    bound = tensor_leaves(args)
+    with trace.running(bound, grad=grad):
+        out = fn()
+        peak = trace.peak[dev]
+    del out
+    return storage_bytes(bound), peak, time.perf_counter() - t0
+
+
+def card_program(fn, args):
+    """``fn()`` on the card: the bytes of ``args`` bound there, and
+    ``max_memory_allocated`` over the run above what else was allocated
+    (the arguments included, as the trace counts them); the outputs."""
+    import torch
+
+    from repro_torch.core.lowering import storage_bytes
+
+    arg = storage_bytes(tensor_leaves(args))
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - arg
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return arg, torch.cuda.max_memory_allocated() - base, out
+
+
+def lm_dry_path(device, procs):
+    """Phase 12, the LM dry run held against the card.  (a) ``remat`` on
+    the card: smollm-135m at full width, one step's loss and gradients
+    on 2 x 4096 tokens under ``"none"``, ``"full"`` and ``"dots"``, equal
+    bit for bit, each with its peak; (b) the trace on one placeholder of
+    the programs the card runs, (a)'s three, phase 10's qwen3-4b prefill
+    (4 x 32) and decode step and phase 11's spmd step (smollm-135m, 8 x
+    128): the argument bytes equal to the bytes bound on the card, the
+    traced peak within ``DRY_BAND`` of ``max_memory_allocated``; (c) the
+    production cells of ``LM_DRY_CELLS``, traced on the host in their own
+    processes: the busiest rank's and rank 0's peak against the card,
+    the bytes between devices by link class, the dominant roofline term
+    and the trace's seconds (printed, kept out of the kernels line)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.opt import AdamW
+
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(device).total_memory
+    out = {"a": {}, "b": {}}
+
+    def tokens(cfg, shape, gen, dev):
+        if isinstance(gen, torch.Generator):
+            return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                 device=dev)
+        return torch.empty(shape, dtype=torch.int64, device=dev)
+
+    def remat_build(mode, rows=REMAT_BATCH):
+        cfg = get_config(TRAIN_ARCH, remat=mode)
+
+        def build(dev, gen):
+            params = init_params(cfg, gen)
+            batch = {k: tokens(cfg, (rows, REMAT_SEQ), gen, dev)
+                     for k in ("inputs", "labels")}
+            return (lambda: lm._value_and_grad(params, cfg, batch)), (
+                params, batch)
+        return build
+
+    # what twice the rows would take, traced (a host number, not held)
+    for mode in ("none", "full"):
+        _, p2, _ = traced_program(remat_build(mode, 2 * REMAT_BATCH), True)
+        log(f"dry 12a: traced peak at {2 * REMAT_BATCH} x {REMAT_SEQ} "
+            f"tokens, remat {mode!r}: {p2} B against total_memory {total} B")
+    # (a) remat on the card, one set of weights and one batch
+    gen = torch.Generator(device).manual_seed(0)
+    _, (params, batch) = remat_build("none")(device, gen)
+    got = {}
+    for mode in ("none", "full", "dots"):
+        cfg = get_config(TRAIN_ARCH, remat=mode)
+        arg, peak, res = card_program(
+            lambda: lm._value_and_grad(params, cfg, batch), (params, batch))
+        loss, _, grads = res
+        got[mode] = (loss, grads)
+        out["a"][mode] = dict(loss=float(loss), peak_bytes=peak,
+                              arg_bytes=arg)
+        log(f"dry 12a: {TRAIN_ARCH} full width, loss and gradients of "
+            f"{REMAT_BATCH} x {REMAT_SEQ} tokens, remat {mode!r}: loss "
+            f"{float(loss):.7f}, max_memory_allocated {peak} B "
+            f"(arguments {arg} B)")
+    for mode in ("full", "dots"):
+        same = torch.equal(got[mode][0], got["none"][0]) and all(
+            torch.equal(a, b) for a, b in zip(got[mode][1], got["none"][1]))
+        out["a"][mode]["bits_equal_none"] = same
+        if not same:
+            raise AssertionError(f"12a: remat {mode!r} leaves the bits of "
+                                 f"'none'")
+    log("dry 12a: 'full' and 'dots' give 'none''s loss and "
+        f"{len(got['none'][1])} gradient leaves bit for bit")
+    del got, res, loss, grads
+
+    # (b) the same programs traced on one placeholder, and phase 10's and
+    # 11's, against the card
+    def check(name, build, grad, card):
+        arg_t, peak_t, secs = traced_program(build, grad)
+        arg_c, peak_c = card
+        ratio = peak_c / peak_t
+        out["b"][name] = dict(arg_bytes=arg_c, args_equal=arg_t == arg_c,
+                              card_peak=peak_c, ratio=ratio)
+        log(f"dry 12b {name}: argument bytes traced {arg_t} / on the card "
+            f"{arg_c}; peak traced {peak_t} B, max_memory_allocated "
+            f"{peak_c} B: ratio {ratio:.4f} (band 1 +- {DRY_BAND}); "
+            f"trace {secs:.2f} s")
+        if arg_t != arg_c:
+            raise AssertionError(f"12b {name}: argument bytes {arg_t} != "
+                                 f"{arg_c} on the card")
+        if abs(ratio - 1) > DRY_BAND:
+            raise AssertionError(f"12b {name}: the traced peak {peak_t} is "
+                                 f"{ratio:.4f} x the card's {peak_c}")
+
+    for mode in ("none", "full", "dots"):
+        a = out["a"][mode]
+        check(f"remat {mode}", remat_build(mode), True,
+              (a["arg_bytes"], a["peak_bytes"]))
+
+    tcfg = get_config(TRAIN_ARCH)
+    opt = AdamW(lr=TRAIN_LR)
+
+    def spmd_build(dev, gen):
+        params = init_params(tcfg, gen)
+        state = opt.init(params)
+        batch = {k: tokens(tcfg, (TRAIN_BATCH, TRAIN_SEQ), gen, dev)
+                 for k in ("inputs", "labels")}
+        step = lm.make_train_step(tcfg, opt)
+        return (lambda: step(params, state, batch)), (params, state, batch)
+
+    del params, batch
+    fn, args = spmd_build(device, gen)
+    arg, peak, res = card_program(fn, args)
+    del fn, args, res
+    check("spmd step", spmd_build, True, (arg, peak))
+
+    qcfg = get_config(LM_ARCH, max_cache=LM_PROMPT + LM_GEN)
+
+    def prefill_build(dev, gen):
+        params = init_params(qcfg, gen)
+        prompts = tokens(qcfg, (LM_BATCH, LM_PROMPT), gen, dev)
+        return (lambda: lm.prefill(params, qcfg, prompts)), (params,
+                                                             prompts)
+
+    def decode_build(dev, gen, params=None, cache=None):
+        if params is None:
+            params = init_params(qcfg, gen)
+            cache = init_cache(qcfg, LM_BATCH, dev)
+            for c in cache:
+                if "pos" in c:
+                    c["pos"] = LM_PROMPT
+        token = tokens(qcfg, (LM_BATCH, 1), gen, dev)
+        return (lambda: lm.decode_step(params, qcfg, cache, token,
+                                       LM_PROMPT)), (params, cache, token)
+
+    fn, args = prefill_build(device, gen)
+    arg, peak, (_, cache) = card_program(fn, args)
+    check("qwen3-4b prefill", prefill_build, False, (arg, peak))
+    fn, args = decode_build(device, gen, args[0], cache)
+    arg, peak, res = card_program(fn, args)
+    check("qwen3-4b decode", decode_build, False, (arg, peak))
+    del fn, args, res, cache
+    gc.collect()
+
+    # (c) the production cells, traced on the host
+    cells = {}
+    for (arch, shape, multi), path_json, proc in procs:
+        _, err = proc.communicate(timeout=900)
+        tag = f"{arch} {shape}{' 2 pods' if multi else ''}"
+        if proc.returncode != 0:
+            raise AssertionError(f"12c {tag}: exit {proc.returncode}\n"
+                                 f"{err[-2000:]}")
+        rec = json.loads(path_json.read_text())[0]
+        if rec["status"] != "ok":
+            raise AssertionError(f"12c {tag}: {rec['status']}\n"
+                                 f"{rec.get('trace', '')}")
+        mem, coll, rf = rec["memory"], rec["collectives"], rec["roofline"]
+        busiest = mem["peak_bytes"]
+        fits = busiest <= total
+        cells[tag] = dict(busiest=busiest, rank0=mem["rank0"]["peak"],
+                          fits=fits, ici=coll["ici_bytes"],
+                          dci=coll["dci_bytes"], dominant=rf["dominant"],
+                          trace_s=rec["trace_s"],
+                          cost_source=rec["cost_source"])
+        log(f"dry 12c {tag} (traced on the host, {rec['cost_source']}, "
+            f"{rec['cell']['ranks']} rank(s) of {rec['mesh']}): busiest "
+            f"rank {mem['rank']} peak {busiest} B, rank 0 "
+            f"{mem['rank0']['peak']} B (arguments "
+            f"{mem['rank0']['argument']} B), against total_memory {total}"
+            f" B: {'fits' if fits else 'does NOT fit'} | per rank ici "
+            f"{coll['ici_bytes']:.6g} dci {coll['dci_bytes']:.6g} B (by "
+            "kind: " + ", ".join(
+                f"{k} {v['ici_bytes']:.6g}/{v['dci_bytes']:.6g}"
+                for k, v in coll["by_kind"].items())
+            + f") | flops/dev {rec['flops_per_dev']:.6g}, bytes/dev "
+            f"{rec['hbm_bytes_per_dev']:.6g}: dominant {rf['dominant']} "
+            f"({rf['t_step']:.4g} s at the H100's datasheet rates) | "
+            f"trace {rec['trace_s']} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dry phase 12: {out['phase_s']:.1f} s")
+    return out, cells
 
 
 def dev_us(e):
@@ -2735,18 +3035,33 @@ def main():
     if dry_launches == 0:
         raise AssertionError("row 1 must run in phase 9's real solves")
     counts["row1"] += dry_launches
-    phase("phase 10: LM serving")
-    xs.reset_launches()
-    lm = lm_path(device)
-    if any(xs.LAUNCHES.values()):
-        raise AssertionError(f"the LM path launched an SpMM kernel: "
-                             f"{dict(xs.LAUNCHES)}")
-    phase("phase 11: LM training")
-    xs.reset_launches()
-    train = train_path(device, card)
-    if any(xs.LAUNCHES.values()):
-        raise AssertionError(f"the training path launched an SpMM kernel: "
-                             f"{dict(xs.LAUNCHES)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_dry_") as tmp:
+        # phase 12c's cells trace on the host beside phases 10 to 12b
+        lm_procs = start_lm_cells(tmp)
+        try:
+            phase("phase 10: LM serving")
+            xs.reset_launches()
+            lm = lm_path(device)
+            if any(xs.LAUNCHES.values()):
+                raise AssertionError(f"the LM path launched an SpMM "
+                                     f"kernel: {dict(xs.LAUNCHES)}")
+            phase("phase 11: LM training")
+            xs.reset_launches()
+            train = train_path(device, card)
+            if any(xs.LAUNCHES.values()):
+                raise AssertionError(f"the training path launched an SpMM "
+                                     f"kernel: {dict(xs.LAUNCHES)}")
+            phase("phase 12: the LM dry run")
+            xs.reset_launches()
+            lm_dry, _ = lm_dry_path(device, lm_procs)
+            if any(xs.LAUNCHES.values()):
+                raise AssertionError(f"the LM dry run launched an SpMM "
+                                     f"kernel: {dict(xs.LAUNCHES)}")
+        finally:
+            for *_, proc in lm_procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     kernels = []
     for key, name, replaces in KERNELS:
         kernels.append(entry(
@@ -2763,6 +3078,7 @@ def main():
     kernels[0]["dry_run"] = dry
     kernels[0]["lm"] = lm
     kernels[0]["train"] = train
+    kernels[0]["lm_dry_run"] = lm_dry
     phase("done")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -58,10 +58,13 @@ class ArchConfig:
     max_cache: int = 0  # KV capacity for prefill/decode lowering
     cache_dtype: object = torch.bfloat16
     activation_dtype: object = torch.bfloat16
-    # remat and scan_layers are the reference's JAX compile knobs: kept
-    # for its field set, no effect here (the port runs the layers in a
-    # Python loop)
+    # remat: in training, each full period of block_pattern is
+    # recomputed in the backward ("full": all of it; "dots": all but the
+    # outputs of products without batch dimensions), as the reference's
+    # jax.checkpoint of its scan body (models.transformer.forward)
     remat: str = "none"  # none | full | dots
+    # scan_layers is the reference's JAX compile knob: kept for its field
+    # set, no effect here (the port runs the layers in a Python loop)
     scan_layers: bool = True
     # the reference's SPMD sharding hints for XLA's propagation: kept for
     # its field set, no effect on one device

@@ -23,7 +23,17 @@ that run:
   storage bytes to its device's live count (each storage once, views
   included), takes them off when ``weakref.finalize`` sees the storage
   die, and keeps each device's peak.  An op that makes a real tensor
-  under the trace is an error: nothing is allocated.
+  (but an empty one) under the trace is an error: nothing is
+  allocated.  A tensor's placeholder is its storage's, so a new tensor
+  object on the same storage (an ``nn.Parameter`` of it) stays on its
+  device.
+* **work per device.**  Each op's FLOPs, by the formulas of
+  ``torch.utils.flop_counter`` (matrix products, batched ones,
+  convolutions and attention kernels: what ``FlopCounterMode``
+  counts), and the bytes it reads and writes, unfused (the bytes of its
+  tensor inputs and outputs; views and ``empty`` move none), are added
+  to the device it runs on.  The backward and a checkpoint's recompute
+  are ops like the others.
 * **bytes between devices.**  Every copy between two placeholders is
   recorded with its bytes, its link class (the slowest
   ``dist.LINK_CLASSES`` axis on which the two devices' mesh coordinates
@@ -31,7 +41,7 @@ that run:
   that moved it: ``reduce-scatter``, ``all-to-all``, ``pmax`` and
   ``psum`` (the CG's scale and dots), ...
 
-:class:`LoweredCG` is the record a trace leaves: ``memory_analysis()``
+:class:`Lowered` is the record a trace leaves: ``memory_analysis()``
 with the reference's field names and ``collectives()`` in the shape of
 the reference's ``analyze_collectives``.
 
@@ -60,6 +70,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from ..dist.topology import LINK_CLASSES
 from ..placement import FakeDevice, current_copy_kind, placeholder
@@ -67,6 +78,7 @@ from ..placement import FakeDevice, current_copy_kind, placeholder
 __all__ = [
     "FakeTrace",
     "Copy",
+    "Lowered",
     "LoweredCG",
     "MemoryAnalysis",
     "storage_bytes",
@@ -96,8 +108,8 @@ class Copy:
     kind: str  # the port's function that moved it
 
 
-def _device_of(t):
-    return t.__dict__.get(_TAG) or _DEVICE.__get__(t)
+_NO_BYTES = {torch.ops.aten.empty, torch.ops.aten.empty_strided,
+             torch.ops.aten.empty_like}  # allocate; read or write nothing
 
 
 def _tensors(tree):
@@ -136,19 +148,19 @@ class _Placement(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if getattr(func, "__self__", None) is _DEVICE:
-            return _device_of(args[0])
         trace = self.trace
+        if getattr(func, "__self__", None) is _DEVICE:
+            return trace.device_of(args[0])
         if func is torch.Tensor.to:
             rest, kw, dest = _split_device(args[1:], kwargs)
             src = args[0]
-            if dest is None or dest == _device_of(src):
+            if dest is None or dest == trace.device_of(src):
                 return func(src, *rest, **kw) if rest or kw else src
             with trace.placed(dest):
                 moved = func(src, *rest, **kw) if rest or kw else src
                 if moved is src:
                     moved = src.clone()
-            trace.record_copy(_device_of(src), dest, moved)
+            trace.record_copy(trace.device_of(src), dest, moved)
             return moved
         dest = kwargs.get("device")
         if isinstance(dest, FakeDevice):
@@ -168,20 +180,28 @@ class _Counter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         trace = self.trace
-        placed = {t.__dict__[_TAG] for t in _tensors((args, kwargs))
-                  if _TAG in t.__dict__}
+        ins = list(_tensors((args, kwargs)))
+        placed = {d for d in map(trace.where, ins) if d is not None}
         if len(placed) > 1:  # as a card would, refuse to mix devices
             raise RuntimeError(f"{func} mixes devices {sorted(placed)}")
-        dev = trace.forced or next(iter(placed), trace.default)
-        for t in _tensors(out):
+        if placed:
+            trace.last = next(iter(placed))
+        # an op with no placed input follows the last one that had: a
+        # checkpoint's recompute runs without the Python-level mode, so
+        # its factories (``arange(device=x.device)``) see "meta"
+        dev = trace.forced or next(iter(placed), None) or trace.last \
+            or trace.default
+        outs = [t for t in _tensors(out) if t.is_meta or t.numel()]
+        for t in outs:  # an empty real tensor allocates nothing
             if not t.is_meta:
                 raise RuntimeError(
                     f"{func} made a tensor on {t.device} under an abstract "
                     "trace: give it a placeholder device"
                 )
             if _TAG not in t.__dict__:
-                t.__dict__[_TAG] = dev
+                t.__dict__[_TAG] = trace.where(t) or dev
             trace.allocated(t)
+        trace.count(func, dev, args, kwargs, out, ins, outs)
         return out
 
 
@@ -193,20 +213,25 @@ class FakeTrace:
     (default ``dist.LINK_CLASSES``).  :meth:`binding` is the context in
     which a program's arguments are made; :meth:`running` the one in
     which it runs, whose counts start afresh with the arguments it is
-    given live from the start.
+    given live from the start.  The run also counts each device's FLOPs
+    (``flops``) and bytes read and written (``bytes_accessed``).
     """
 
     def __init__(self, coords: dict, link_classes: dict | None = None):
         self.coords = dict(coords)
+        self.flops: dict = {}
+        self.bytes_accessed: dict = {}
         self.links = dict(LINK_CLASSES)
         self.links.update(link_classes or {})
         self.default = next(iter(self.coords))
         self.forced = None
+        self.last = None
         self.live: dict = {}
         self.peak: dict = {}
         self.copies: list = []
         self._known: set = set()  # ids of storages counted or bound
         self._run = 0  # a storage of an earlier run frees nothing of this
+        self._where: dict = {}  # id(storage) -> (weakref, placeholder)
 
     @classmethod
     def for_mesh(cls, mesh) -> "FakeTrace":
@@ -218,6 +243,22 @@ class FakeTrace:
             coords.setdefault(placeholder(mesh.devices[idx]),
                               dict(zip(mesh.axis_names, map(int, idx))))
         return cls(coords)
+
+    def where(self, t):
+        """The placeholder of ``t`` (its storage's), or ``None``."""
+        d = t.__dict__.get(_TAG)
+        if d is not None or not t.is_meta:
+            return d
+        st = t.untyped_storage()
+        hit = self._where.get(id(st))
+        if hit is None or hit[0]() is not st:
+            return None
+        t.__dict__[_TAG] = hit[1]
+        return hit[1]
+
+    def device_of(self, t):
+        """``t.device`` under the trace: its placeholder, if it has one."""
+        return self.where(t) or _DEVICE.__get__(t)
 
     def empty(self, shape, dtype, device) -> torch.Tensor:
         """A fake (meta) tensor on placeholder ``device``, under
@@ -235,19 +276,22 @@ class FakeTrace:
             yield self
 
     @contextlib.contextmanager
-    def running(self, bound=()):
+    def running(self, bound=(), grad: bool = False):
         """Run under the trace; the storages of ``bound`` (tensors made
         under :meth:`binding`) are live on their devices from the
-        start."""
+        start.  Autograd is off unless ``grad``."""
         self._run += 1
         self.live, self.peak, self.copies = {}, {}, []
+        self.flops, self.bytes_accessed = {}, {}
+        self.last = None
         self._known = set()
         for t in bound:
             st = t.untyped_storage()
             if id(st) not in self._known:
                 self._known.add(id(st))
-                self._add(_device_of(t), st.nbytes())
-        with _Placement(self), _Counter(self), torch.no_grad():
+                self._add(self.device_of(t), st.nbytes())
+        with _Placement(self), _Counter(self), \
+                torch.set_grad_enabled(grad):
             yield self
 
     @contextlib.contextmanager
@@ -269,6 +313,9 @@ class FakeTrace:
             self.peak[dev] = live
 
     def _free(self, run, key, dev, n):
+        hit = self._where.get(key)
+        if hit is not None and hit[0]() is None:
+            del self._where[key]
         if run == self._run:
             self._known.discard(key)
             self.live[dev] = self.live.get(dev, 0) - n
@@ -282,7 +329,20 @@ class FakeTrace:
         n = st.nbytes()
         dev = t.__dict__[_TAG]
         self._add(dev, n)
+        self._where[key] = (weakref.ref(st), dev)
         weakref.finalize(st, self._free, self._run, key, dev, n)
+
+    def count(self, func, dev, args, kwargs, out, ins, outs):
+        """An op's FLOPs and bytes, on ``dev``."""
+        packet = func._overloadpacket
+        formula = flop_registry.get(packet)
+        if formula is not None:
+            self.flops[dev] = (self.flops.get(dev, 0)
+                               + int(formula(*args, **kwargs, out_val=out)))
+        if func.is_view or packet in _NO_BYTES:
+            return
+        n = sum(t.numel() * t.element_size() for t in ins + outs)
+        self.bytes_accessed[dev] = self.bytes_accessed.get(dev, 0) + n
 
     def link(self, src, dst) -> str:
         a, b = self.coords.get(src, {}), self.coords.get(dst, {})
@@ -324,19 +384,18 @@ class MemoryAnalysis:
 
 
 @dataclasses.dataclass
-class LoweredCG:
-    """What :meth:`Reconstructor.lower_cg` leaves: the trace's numbers.
+class Lowered:
+    """What a trace leaves: its numbers, per rank and per device.
 
-    ``devices`` lists each rank's placeholder (batch group major),
-    ``argument`` each rank's bound bytes; ``bound`` (the distinct bound
-    storages on a device), ``input`` / ``output`` / ``peak`` map a
-    placeholder to its bytes; ``copies`` are the trace's
-    copies between placeholders; ``notes`` say what the numbers stand
-    for where the layout is an estimate.
+    ``devices`` lists each rank's placeholder, ``argument`` each rank's
+    bound bytes; ``bound`` (the distinct bound storages on a device),
+    ``input`` / ``output`` / ``peak`` map a placeholder to its bytes;
+    ``copies`` are the trace's copies between placeholders; ``notes``
+    say what the numbers stand for where the layout is an estimate;
+    ``flops`` / ``bytes_accessed`` map a placeholder to its work, where
+    the trace counted it.
     """
 
-    y_slices: int
-    iters: int
     devices: list
     argument: list
     bound: dict
@@ -345,6 +404,8 @@ class LoweredCG:
     peak: dict
     copies: list
     notes: list = dataclasses.field(default_factory=list)
+    flops: dict = dataclasses.field(default_factory=dict)
+    bytes_accessed: dict = dataclasses.field(default_factory=dict)
 
     def memory_analysis(self) -> MemoryAnalysis:
         arg = np.array(self.argument, dtype=np.int64)
@@ -402,3 +463,13 @@ class LoweredCG:
         out["rank0_sent"] = sent.get(dev0, 0)
         out["rank0_received"] = received.get(dev0, 0)
         return out
+
+
+@dataclasses.dataclass
+class LoweredCG(Lowered):
+    """What :meth:`Reconstructor.lower_cg` leaves: a :class:`Lowered`
+    of ``iters`` CG iterations on ``y_slices`` slices (``devices``: each
+    rank's placeholder, batch group major)."""
+
+    y_slices: int = 0
+    iters: int = 0

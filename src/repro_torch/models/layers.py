@@ -29,8 +29,9 @@ from torch import nn
 
 __all__ = [
     "act_fn", "apply_rope", "attn_apply", "attn_init", "dense_init",
-    "gelu", "mlp_apply", "mlp_init", "norm_apply", "norm_init",
+    "dot", "gelu", "mlp_apply", "mlp_init", "norm_apply", "norm_init",
     "rope_freqs", "sigmoid", "silu", "sinusoidal_embedding", "softplus",
+    "Unseeded",
 ]
 
 # --------------------------------------------------------------------- #
@@ -38,14 +39,24 @@ __all__ = [
 # --------------------------------------------------------------------- #
 
 
-def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
-               dtype=torch.float32):
+class Unseeded:
+    """Stands in for the ``torch.Generator`` of the ``*_init`` functions
+    where only shapes matter: every weight is made on ``device`` and
+    nothing is drawn (the dry run's parameters, fake tensors on a
+    placeholder, where a random draw has no values to write)."""
+
+    def __init__(self, device):
+        self.device = device
+
+
+def dense_init(gen, shape, in_axis: int = 0, dtype=torch.float32):
     """Truncated normal on [-2, 2] times ``1/sqrt(fan_in)``, the
     reference's distribution (not its numbers), drawn from ``gen`` on its
-    device."""
+    device (an :class:`Unseeded` ``gen`` draws nothing)."""
     std = 1.0 / math.sqrt(shape[in_axis])
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
-    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if not isinstance(gen, Unseeded):
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * std).to(dtype)
 
 
@@ -53,6 +64,78 @@ def params(**tensors) -> nn.ParameterDict:
     """A block's parameters, frozen (serving computes no gradients)."""
     return nn.ParameterDict({
         k: nn.Parameter(v, requires_grad=False) for k, v in tensors.items()})
+
+
+ROW_BLOCK = 64  # rows of every GEMM call under :func:`dot`'s CPU rule
+
+
+def _fixed_rows(a, b):
+    """``a [M, K] @ b [K, N]`` in f32, as GEMM calls of exactly
+    ``ROW_BLOCK`` rows each (the last one zero-padded): every row is
+    summed by the same kernel in the same order, whatever ``M`` is."""
+    m, k = a.shape
+    pad = -m % ROW_BLOCK
+    if pad:
+        a = torch.cat([a, a.new_zeros((pad, k))])
+    return torch.cat([a[i:i + ROW_BLOCK] @ b
+                      for i in range(0, m + pad, ROW_BLOCK)])[:m]
+
+
+class _RowFree(torch.autograd.Function):
+    """:func:`dot`'s CPU rule; the backward is the plain product's."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        a32, b32 = a.to(torch.float32), b.to(torch.float32)
+        if b.dim() == 2:  # a [..., K] @ b [K, N]
+            out = _fixed_rows(a32.reshape(-1, a.shape[-1]), b32)
+            out = out.reshape(a.shape[:-1] + b.shape[-1:])
+        else:  # experts: a [B, E, C, K] @ b [E, K, N] -> [B, E, C, N]
+            out = torch.stack([
+                _fixed_rows(a32[:, e].reshape(-1, a.shape[-1]), b32[e])
+                .reshape(a.shape[0], a.shape[2], b.shape[-1])
+                for e in range(b.shape[0])], dim=1)
+        return out.to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if b.dim() == 2:  # as matmul folds a [..., K] into rows
+            if ctx.needs_input_grad[0]:
+                ga = g @ b.T
+            if ctx.needs_input_grad[1]:
+                gb = (a.reshape(-1, a.shape[-1]).T
+                      @ g.reshape(-1, g.shape[-1]))
+        else:
+            if ctx.needs_input_grad[0]:
+                ga = torch.einsum("becn,ekn->beck", g, b)
+            if ctx.needs_input_grad[1]:
+                gb = torch.einsum("beck,becn->ekn", a, g)
+        return ga, gb
+
+
+def dot(x, w):
+    """The models' product of activations and a weight, ``w`` cast to
+    ``x``'s dtype first: ``x [..., K] @ w [K, N]``, or per expert
+    ``x [B, E, C, K] @ w [E, K, N] -> [B, E, C, N]`` (the reference's
+    ``einsum("becd,edf->becf")``).
+
+    In bf16 on the CPU its value is the f32 product of the widened
+    operands, rounded to bf16, summed by GEMM calls of exactly
+    ``ROW_BLOCK`` rows: the CPU's GEMMs pick their kernel, and with it
+    the order of a row's sum, by the number of rows (one row, or up to
+    16 at some widths), so a decode step's rows rounded unlike the same
+    rows inside a forward (ROADMAP.md, fault B).  XLA:CPU's product does
+    not depend on the rows either.  In f32, and on the card (cuBLAS), it
+    is the plain product.  The gradient is the plain product's.
+    """
+    w = w.to(x.dtype)
+    if x.dtype in (torch.float32, torch.float64) or x.device.type != "cpu":
+        return x @ w if w.dim() == 2 else torch.einsum(
+            "becd,edf->becf", x, w)
+    return _RowFree.apply(x, w)
 
 
 def softplus(x):
@@ -218,9 +301,9 @@ def attn_apply(p, x, *, cfg, positions, cache=None, mode="train",
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     adt = x.dtype
 
-    q = x @ p["wq"].to(adt)
-    k = x @ p["wk"].to(adt)
-    v = x @ p["wv"].to(adt)
+    q = dot(x, p["wq"])
+    k = dot(x, p["wk"])
+    v = dot(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(adt)
         k = k + p["bk"].to(adt)
@@ -281,7 +364,7 @@ def attn_apply(p, x, *, cfg, positions, cache=None, mode="train",
                 ck[:, :t] = k.to(cdt)
                 cv[:, :t] = v.to(cdt)
             new_cache = {"k": ck, "v": cv, "pos": t}
-    y = o @ p["wo"].to(adt)
+    y = dot(o, p["wo"])
     return y, new_cache
 
 
@@ -302,9 +385,9 @@ def mlp_init(gen, cfg, d_ff=None):
 def mlp_apply(p, x, *, cfg):
     adt = x.dtype
     act = act_fn(cfg.act)
-    h = x @ p["wi"].to(adt)
+    h = dot(x, p["wi"])
     if "wg" in p:
-        h = act(x @ p["wg"].to(adt)) * h
+        h = act(dot(x, p["wg"])) * h
     else:
         h = act(h)
-    return h @ p["wo"].to(adt)
+    return dot(h, p["wo"])

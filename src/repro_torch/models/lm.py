@@ -28,6 +28,7 @@ from ..core.precision import qcast
 from ..dist.collectives import hierarchical_psum
 from ..dist.topology import Topology
 from ..opt.tree import leaves, tree_map, unflatten
+from ..placement import copy_kind
 from .transformer import forward, init_cache  # noqa: F401
 
 __all__ = ["decode_step", "loss_fn", "make_hier_train_step",
@@ -112,6 +113,7 @@ def make_hier_train_step(
     dp_axes=("data", "pod"),
     comm_dtype=torch.bfloat16,
     adaptive: bool = True,
+    rank_step=None,
 ):
     """Paper-style hierarchical mixed-precision gradient sync over the
     data-parallel ranks of ``mesh`` (a ``dist.DeviceMesh``).
@@ -147,6 +149,17 @@ def make_hier_train_step(
         hints (the reference's ``maybe_constrain``) are XLA's and have no
         counterpart here.
 
+    The copies between devices carry ``placement.copy_kind`` tags: the
+    batch rows rank 0 sends to a rank (``"scatter"``), the parameters it
+    sends to a rank on another device at every step (``"replicate"``),
+    the ranks' losses (``"pmean"``), beside ``qcast``'s ``"pmax"`` and
+    the ladder's own.
+
+    ``rank_step(params, cfg, shard) -> (loss, metrics, grads)`` is what
+    each rank runs on its replica and its rows (default: the loss and
+    its backward); the dry run gives one that replays a rank's work
+    (``launch.dryrun``).
+
     The step carries ``topology`` (the ladder), ``plan`` (its ``hier``
     ``CommPlan``), ``wire_dtype`` and ``sync(params, batch) -> (loss,
     metrics, grads)``, the synced gradients as a list in
@@ -157,6 +170,7 @@ def make_hier_train_step(
     ndp = topo.n_data
     wire_dtype = torch.float32
     devices = topo.rank_devices()
+    rank_step = _value_and_grad if rank_step is None else rank_step
 
     def sync(params, batch):
         home = _device(params)
@@ -166,11 +180,13 @@ def make_hier_train_step(
         rows = n_rows // ndp
         losses, metrics, grads = [], None, []
         for p, dev in enumerate(devices):
-            shard = {k: _as_tensor(v[p * rows:(p + 1) * rows], dev)
-                     for k, v in batch.items()}
-            replica = (params if dev == home
-                       else tree_map(lambda t, d=dev: t.to(d), params))
-            loss, m, g = _value_and_grad(replica, cfg, shard)
+            with copy_kind("scatter"):
+                shard = {k: _as_tensor(v[p * rows:(p + 1) * rows], dev)
+                         for k, v in batch.items()}
+            with copy_kind("replicate"):
+                replica = (params if dev == home
+                           else tree_map(lambda t, d=dev: t.to(d), params))
+            loss, m, g = rank_step(replica, cfg, shard)
             losses.append(loss)
             metrics = m if metrics is None else metrics
             grads.append(g)
@@ -193,9 +209,10 @@ def make_hier_train_step(
             synced.append(part.to(home) * (invs[j][0].to(home) / ndp))
             start += n
         loss = losses[0]
-        for x in losses[1:]:
-            loss = loss + x.to(loss.device)
-        return (loss / ndp).to(home), metrics, synced
+        with copy_kind("pmean"):
+            for x in losses[1:]:
+                loss = loss + x.to(loss.device)
+            return (loss / ndp).to(home), metrics, synced
 
     def step(params, opt_state, batch):
         loss, metrics, grads = sync(params, batch)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .layers import act_fn, dense_init, params
+from .layers import act_fn, dense_init, dot, params
 
 __all__ = ["moe_apply", "moe_init"]
 
@@ -67,9 +67,9 @@ def moe_apply(p, x, *, cfg):
     buckets = buckets[:, :, :cap]
 
     act = act_fn(cfg.act)
-    h = torch.einsum("becd,edf->becf", buckets, p["wi"].to(adt))
-    g = torch.einsum("becd,edf->becf", buckets, p["wg"].to(adt))
-    out = torch.einsum("becf,efd->becd", act(g) * h, p["wo"].to(adt))
+    h = dot(buckets, p["wi"])
+    g = dot(buckets, p["wg"])
+    out = dot(act(g) * h, p["wo"])
 
     # combine: the trash slot reads zeros; each token's k terms added in
     # order, each sum rounded to the activation dtype

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .layers import dense_init, gelu, params, sigmoid, softplus
+from .layers import dense_init, dot, gelu, params, sigmoid, softplus
 
 __all__ = ["C_FACTOR", "rglru_apply", "rglru_init"]
 
@@ -110,8 +110,8 @@ def rglru_apply(p, x, *, cfg, cache=None, mode="train"):
     """Returns (y, new_cache); cache = {"h": [B,R], "conv": [B,W-1,R]}."""
     adt = x.dtype
 
-    gate = gelu(x @ p["wy"].to(adt))
-    u = x @ p["wx"].to(adt)
+    gate = gelu(dot(x, p["wy"]))
+    u = dot(x, p["wx"])
     uf, conv_state = _conv1d(
         u, p["conv"], None if cache is None else cache["conv"], f32_sum=True
     )
@@ -133,5 +133,5 @@ def rglru_apply(p, x, *, cfg, cache=None, mode="train"):
             new_cache = {"h": out[:, -1],
                          "conv": conv_state.to(torch.float32)}
 
-    y = (out.to(adt) * gate) @ p["wo"].to(adt)
+    y = dot(out.to(adt) * gate, p["wo"])
     return y, new_cache

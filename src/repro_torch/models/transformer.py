@@ -5,17 +5,22 @@ kind ``cfg.block_pattern[i % period]``: the reference groups the layers
 into full periods under ``jax.lax.scan`` (period-stacked parameters)
 plus a trailing partial period; here the same layers, in the same order,
 are one ``torch.nn.ModuleList`` run in a Python loop, each layer a
-module of its own.  ``scan_layers`` and ``remat`` are JAX compile knobs
-and change nothing.  :func:`params_from_reference` unstacks the
-reference's parameter tree into that layout.
+module of its own.  ``scan_layers`` is a JAX compile knob and changes
+nothing; ``remat`` checkpoints each full period in training, as the
+reference's ``jax.checkpoint`` of its scan body does (:func:`forward`).
+:func:`params_from_reference` unstacks the reference's parameter tree
+into that layout.
 
 Modes: "train" (full-seq causal, no cache), "prefill" (full-seq, emits
 cache), "decode" (one token, consumes+emits cache).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from .moe import moe_apply, moe_init
@@ -77,10 +82,12 @@ def _layer_init(gen, kind: str, cfg):
     return nn.ModuleDict(p)
 
 
-def init_params(cfg, gen: torch.Generator) -> LMParams:
-    """Random parameters from ``gen``, on its device: the reference's
-    distributions (truncated normal +-2 times ``1/sqrt(fan_in)`` for every
-    dense weight), not its numbers."""
+def init_params(cfg, gen) -> LMParams:
+    """Random parameters from ``gen`` (a ``torch.Generator``), on its
+    device: the reference's distributions (truncated normal +-2 times
+    ``1/sqrt(fan_in)`` for every dense weight), not its numbers.  With
+    ``layers.Unseeded(device)`` the same tree with no values drawn (the
+    dry run's abstract parameters)."""
     embed = unembed = None
     if cfg.embed_inputs:
         embed = L.dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1)
@@ -238,6 +245,28 @@ def _layer_apply(kind, p, x, *, cfg, positions, cache, mode, xs=None):
     return xs.to(x.dtype), c, aux, xs
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of products without batch
+    dimensions (the reference's ``dots_with_no_batch_dims_saveable``),
+    recompute the rest (attention's batched einsums among them)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(remat: str):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat`` (``None``: no
+    checkpoint)."""
+    if remat == "none":
+        return None
+    if remat == "full":
+        return ckpt.noop_context_fn
+    if remat == "dots":
+        return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _save_products)
+    raise ValueError(f"remat {remat!r}: none, full or dots")
+
+
 def forward(params: LMParams, cfg, inputs, *, positions, cache=None,
             mode="train", last_token_only: bool = False):
     """Run the decoder (differentiable: it builds an autograd graph only
@@ -251,6 +280,15 @@ def forward(params: LMParams, cfg, inputs, *, positions, cache=None,
     stored rounded, so the next period's first norm reads the rounded
     stream.  The final norm reads the last add unrounded when the
     reference's trailing partial period ran last.
+
+    In training (``mode="train"``) with ``cfg.remat`` ``"full"`` or
+    ``"dots"``, each full period runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, whose
+    inputs and outputs are the scan's carry (the rounded stream and the
+    aux sum): the backward recomputes the period (``"dots"`` keeping the
+    outputs of ``mm`` / ``addmm``).  The trailing partial period is not
+    checkpointed, as in the reference.  The values are those of
+    ``"none"``, bit for bit.
 
     Args:
       inputs: int tokens [B, T] (``cfg.embed_inputs``) or precomputed
@@ -276,16 +314,36 @@ def forward(params: LMParams, cfg, inputs, *, positions, cache=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = []
     n_per, period = _stack(cfg)
-    xs = None
-    for i, (kind, p) in enumerate(zip(cfg.pattern_kinds, params.layers)):
-        x, c, aux, xs = _layer_apply(
-            kind, p, x, cfg=cfg, positions=positions,
-            cache=None if cache is None else cache[i], mode=mode, xs=xs,
-        )
-        if i < n_per * period and (i + 1) % period == 0:
-            xs = None  # the scan's carry is stored rounded
-        aux_total = aux_total + aux
-        new_cache.append(c)
+    layers = list(zip(cfg.pattern_kinds, params.layers))
+    remat = _remat_context(cfg.remat) if mode == "train" else None
+
+    def run(lo, hi, x, aux_total, caches=None):
+        """Layers ``lo .. hi - 1``: ``(x, aux_total, xs)``."""
+        xs = None
+        for i in range(lo, hi):
+            kind, p = layers[i]
+            x, c, aux, xs = _layer_apply(
+                kind, p, x, cfg=cfg, positions=positions,
+                cache=None if cache is None else cache[i], mode=mode, xs=xs,
+            )
+            aux_total = aux_total + aux
+            if caches is not None:
+                caches.append(c)
+        return x, aux_total, xs
+
+    # the full periods: the scan's carry (x, aux) is stored rounded, so
+    # each period starts from the rounded stream
+    for per in range(n_per):
+        lo = per * period
+        if remat is None:
+            x, aux_total, _ = run(lo, lo + period, x, aux_total, new_cache)
+        else:  # training: no caches; the decoder draws no random numbers
+            x, aux_total = ckpt.checkpoint(
+                lambda x, a, lo=lo: run(lo, lo + period, x, a)[:2],
+                x, aux_total, use_reentrant=False, context_fn=remat,
+                preserve_rng_state=False)
+    x, aux_total, xs = run(n_per * period, len(layers), x, aux_total,
+                           new_cache)
 
     if xs is not None:
         x = xs
@@ -293,6 +351,6 @@ def forward(params: LMParams, cfg, inputs, *, positions, cache=None,
         x = x[:, -1:]
     x = L.norm_apply(params.final_norm, x, cfg.norm_eps).to(adt)
     w = params.embed.T if params.unembed is None else params.unembed
-    logits = (x @ w.to(adt)).to(torch.float32)
+    logits = L.dot(x, w).to(torch.float32)
     out_cache = new_cache if mode in ("prefill", "decode") else None
     return logits, out_cache, aux_total

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from .layers import dense_init, gelu, params, sigmoid, silu, softplus
+from .layers import dense_init, dot, gelu, params, sigmoid, silu, softplus
 from .rglru import _conv1d
 
 __all__ = ["mlstm_apply", "mlstm_init", "slstm_apply", "slstm_init"]
@@ -81,8 +81,8 @@ def mlstm_apply(p, x, *, cfg, cache=None, mode="train"):
     dn = p["w_up"].shape[1]
     hd = dn // nh
 
-    up = x @ p["w_up"].to(adt)
-    gate = x @ p["w_gate"].to(adt)
+    up = dot(x, p["w_up"])
+    gate = dot(x, p["w_gate"])
     cv, conv_state = _conv1d(
         up, p["conv"], None if cache is None else cache["conv"]
     )
@@ -90,9 +90,9 @@ def mlstm_apply(p, x, *, cfg, cache=None, mode="train"):
     # ``cv.astype(f32) @ w_if`` reads it so as XLA compiles it
     cv32 = cv.to(torch.float32) * sigmoid(cv).to(torch.float32)
     cv = cv32.to(adt)
-    q = (cv @ p["wq"].to(adt)).reshape(b, t, nh, hd)
-    k = (cv @ p["wk"].to(adt)).reshape(b, t, nh, hd)
-    v = (up @ p["wv"].to(adt)).reshape(b, t, nh, hd)
+    q = dot(cv, p["wq"]).reshape(b, t, nh, hd)
+    k = dot(cv, p["wk"]).reshape(b, t, nh, hd)
+    v = dot(up, p["wv"]).reshape(b, t, nh, hd)
     gif = cv32 @ p["w_if"] + p["b_if"]
     ig, fg = gif[..., :nh], gif[..., nh:]  # [B,T,H]
 
@@ -116,7 +116,7 @@ def mlstm_apply(p, x, *, cfg, cache=None, mode="train"):
 
     h = h.reshape(b, -1, dn).to(adt)
     h = h + p["skip"].to(adt) * cv[:, :h.shape[1]]
-    y = (h * silu(gate[:, :h.shape[1]])) @ p["w_down"].to(adt)
+    y = dot(h * silu(gate[:, :h.shape[1]]), p["w_down"])
     new_cache = None
     if mode in ("prefill", "decode"):
         cc, nn_, mm = state
@@ -184,9 +184,9 @@ def slstm_apply(p, x, *, cfg, cache=None, mode="train"):
     h = torch.stack(hs, dim=1).to(adt)
 
     f2 = p["ff_wi"].shape[1] // 2
-    ff = h @ p["ff_wi"].to(adt)
+    ff = dot(h, p["ff_wi"])
     h = gelu(ff[..., :f2]) * ff[..., f2:]
-    y = h @ p["ff_wo"].to(adt)
+    y = dot(h, p["ff_wo"])
     new_cache = None
     if mode in ("prefill", "decode"):
         c, n, m, hh = state

@@ -44,6 +44,7 @@ def test_importing_every_port_module_loads_no_jax():
         m.name for m in pkgutil.walk_packages([str(PORT)], "repro_torch.")
     ]
     assert "repro_torch.kernels.xct_spmm" in names
+    assert "repro_torch.launch.hlo_analysis" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -349,19 +349,34 @@ def test_socket_sweep_and_its_cli_equal_the_reference(ref, capsys):
 
 @pytest.mark.parametrize("flags", [["--arch", "qwen3-4b"],
                                    ["--all"], ["--shape", "train_4k"]])
-def test_lm_cells_are_not_ported_yet(flags, capsys):
-    assert dryrun.main(flags) == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_lm_cells_run(flags, capsys):
+    """The LM flags trace their cells (``--arch``: every shape of it,
+    ``--shape``: every arch at it), here at SMOKE widths: exit 0, every
+    record ``ok`` but the long-context cells of full-attention archs,
+    which the reference skips too."""
+    assert dryrun.main(flags + ["--smoke"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert recs
+    for r in recs:
+        assert r["status"] == "ok" or (r["status"] ==
+                                       "skipped(full-attention)"
+                                       and r["shape"] == "long_500k"), r
+        assert r["arch"] == flags[1] if flags[0] == "--arch" else True
+    n_arch = len(dryrun.ARCH_NAMES)
+    assert len(recs) == {"--arch": 4, "--all": 4 * n_arch,
+                         "--shape": n_arch}[flags[0]]
 
 
 def test_cli_of_the_dry_run_in_a_process_of_its_own():
-    """``python -m repro_torch.launch.dryrun --arch`` exits 2 and imports
-    nothing of JAX."""
+    """``python -m repro_torch.launch.dryrun --arch ... --shape ...``
+    prints an ``ok`` record and imports nothing of JAX."""
     env = dict(os.environ, PYTHONPATH=_SRC)
     r = subprocess.run(
         [sys.executable, "-c",
          "import sys, runpy\n"
-         "sys.argv = ['dryrun', '--arch', 'qwen3-4b']\n"
+         "sys.argv = ['dryrun', '--arch', 'qwen3-4b', '--shape', "
+         "'train_4k', '--smoke']\n"
          "try:\n"
          "    runpy.run_module('repro_torch.launch.dryrun', "
          "run_name='__main__')\n"
@@ -370,8 +385,10 @@ def test_cli_of_the_dry_run_in_a_process_of_its_own():
          "    raise\n"],
         capture_output=True, text=True, env=env, timeout=120,
     )
-    assert r.returncode == 2, r.stderr
-    assert "not ported yet" in r.stderr
+    assert r.returncode == 0, r.stderr
+    rec = json.loads(r.stdout.splitlines()[-1])
+    assert rec["status"] == "ok" and rec["arch"] == "qwen3-4b"
+    assert rec["cost_source"] == "trace(every layer)"
 
 
 # --------------------------------------------------------------------- #

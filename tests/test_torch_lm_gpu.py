@@ -169,3 +169,36 @@ def test_cuda_cli_trains(cuda, capsys):
     assert len(losses) == 3 and np.isfinite(losses).all()
     out = capsys.readouterr().out
     assert "final loss" in out and "step     2" in out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_cuda_remat_gives_the_bits_of_none(cuda, name):
+    """``remat="full"`` and ``"dots"`` on the card: the loss and every
+    gradient leaf of ``"none"``, bit for bit (SMOKE widths, bf16)."""
+    cfg = get_config(name, smoke=True, moe_capacity_factor=8.0)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    batch = TokenStream(cfg.vocab_size, T, B, seed=0).batch(0) \
+        if cfg.embed_inputs else {
+            "inputs": np.random.default_rng(0).standard_normal(
+                (B, T, cfg.d_model)).astype(np.float32),
+            "labels": np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (B, T)).astype(np.int32)}
+    got = {m: lm._value_and_grad(params, dataclasses.replace(cfg, remat=m),
+                                 batch) for m in ("none", "full", "dots")}
+    for m in ("full", "dots"):
+        assert torch.equal(got[m][0], got["none"][0]), m
+        for a, b in zip(got[m][2], got["none"][2]):
+            assert torch.equal(a, b), m
+
+
+@pytest.mark.gpu
+def test_cuda_dot_is_the_plain_product(cuda):
+    """``layers.dot`` keeps cuBLAS's product on the card (its CPU rule is
+    for the host's GEMMs)."""
+    from repro_torch.models.layers import dot
+
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((132, 256), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((256, 512), generator=gen, device=cuda)
+    assert torch.equal(dot(x, w), x @ w.bfloat16())

@@ -452,18 +452,14 @@ def test_recurrentgemma_at_its_real_depth():
     assert _forward_err("recurrentgemma-9b", 38) <= TOL["bf16"]
 
 
-def test_bf16_decode_against_forward_no_worse_than_the_reference():
-    """Fault B at a cut width (qwen3-4b's blocks at d_model 512, 4 layers,
-    vocab 8192; batch 4, 32-token prefill): the port's bf16 decode step
-    against its own forward differs no more than the reference's does.
-    ROADMAP.md holds the full-width table, which this width cannot see:
-    there the reference leaves ``allclose(2e-2, 2e-2)`` from 4 layers,
-    the port from 2."""
+def _decode_gaps(**kw):
+    """qwen3-4b's blocks with ``kw`` replaced, the reference's weights
+    (seed 0), batch 4, a 32-token prefill: (port, reference) max abs
+    difference of the bf16 decode of token 32 against the forward over
+    33 tokens at position 32."""
     from repro.models import lm as jlm
     from repro_torch.models import lm as tlm
 
-    kw = dict(n_layers=4, d_model=512, n_heads=4, n_kv_heads=2, d_ff=1536,
-              vocab_size=8192, max_cache=40)
     jc = dataclasses.replace(ref_config("qwen3-4b"), **kw)
     tc = dataclasses.replace(get_config("qwen3-4b"), **kw)
     jp = jt.init_params(jc, jax.random.PRNGKey(0))
@@ -483,7 +479,45 @@ def test_bf16_decode_against_forward_no_worse_than_the_reference():
         tf = tt.forward(tp, tc, xt, positions=torch.from_numpy(pos))[0][:, p]
         _, cache = tlm.prefill(tp, tc, xt[:, :p])
         td = tlm.decode_step(tp, tc, cache, xt[:, p:], p)[2]
-    ref_gap = float(np.abs(np.asarray(jd) - jf).max())
-    port_gap = float((td - tf).abs().max())
+    return (float((td - tf).abs().max()),
+            float(np.abs(np.asarray(jd) - jf).max()))
+
+
+def test_bf16_decode_against_forward_no_worse_than_the_reference():
+    """Fault B at a cut width (qwen3-4b's blocks at d_model 512, 4 layers,
+    vocab 8192): the port's bf16 decode step against its own forward
+    differs no more than the reference's does."""
+    port_gap, ref_gap = _decode_gaps(
+        n_layers=4, d_model=512, n_heads=4, n_kv_heads=2, d_ff=1536,
+        vocab_size=8192, max_cache=40)
     assert ref_gap > 0  # the reference's own decode leaves its forward
     assert port_gap <= ref_gap, (port_gap, ref_gap)
+
+
+def test_bf16_decode_against_forward_at_full_width():
+    """Fault B where it showed: qwen3-4b at its full width, cut to 2
+    layers.  The CPU's GEMMs summed a row in an order set by the call's
+    row count (4 rows in decode, 132 in the forward), so the port's gap
+    was 0.03125 against the reference's 0.0234; ``layers.dot`` sums
+    every row alike, and the port's gap must be no larger."""
+    port_gap, ref_gap = _decode_gaps(n_layers=2, max_cache=40)
+    assert ref_gap > 0
+    assert port_gap <= ref_gap, (port_gap, ref_gap)
+
+
+def test_bf16_product_does_not_depend_on_the_row_count():
+    """The cause of fault B, at the q projection's shape (2560 x 4096):
+    the decode's 4 rows (token 32 of each of 4 sequences) give the same
+    bf16 bits alone as inside the forward's 132 rows."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((132, 2560)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((2560, 4096))
+                          / np.sqrt(2560)).astype(np.float32))
+    rows = torch.tensor([32, 65, 98, 131])
+    whole = tl.dot(x, w)
+    alone = tl.dot(x[rows], w)
+    assert alone.dtype == torch.bfloat16
+    assert torch.equal(alone, whole[rows])
+    # and one row alone, as a GEMM of one row picks yet another kernel
+    assert torch.equal(tl.dot(x[rows[:1]], w), whole[rows[:1]])

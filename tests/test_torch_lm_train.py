@@ -11,6 +11,7 @@ layout); the bf16 loss within 2e-2, with the MoE router near ties of
 gradients to bf16 and sums the casts in f32: each synced gradient leaf
 within 2**-7 of that leaf's max|g|.
 """
+import dataclasses
 import functools
 import os
 import subprocess
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import get_config as ref_config
 from repro.data.tokens import TokenStream as RefStream
@@ -99,6 +101,50 @@ def test_loss_and_grads_match_reference(name):
     # the caller's parameters stay frozen and hold no gradient
     assert not any(p.requires_grad or p.grad is not None
                    for p in tp.parameters())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_remat_gives_the_bits_of_none(name, dtype):
+    """``remat="full"`` and ``"dots"`` checkpoint each full period of
+    the block pattern and recompute it in the backward (more FLOPs than
+    ``"none"``; ``"dots"`` keeps the unbatched products' outputs, so
+    fewer than ``"full"``), and the loss and every gradient leaf are
+    ``"none"``'s, bit for bit."""
+    _, tc, _, tp = _models(name, dtype)
+    batch = _batch(tc)
+    out, flops = {}, {}
+    for remat in ("none", "full", "dots"):
+        cfg = dataclasses.replace(tc, remat=remat)
+        with FlopCounterMode(display=False) as counter:
+            out[remat] = tlm._value_and_grad(tp, cfg, batch)
+        flops[remat] = counter.get_total_flops()
+    for remat in ("full", "dots"):
+        loss, metrics, grads = out[remat]
+        assert torch.equal(loss, out["none"][0]), remat
+        assert all(torch.equal(metrics[k], out["none"][1][k])
+                   for k in metrics), remat
+        assert len(grads) == len(out["none"][2])
+        for a, b in zip(grads, out["none"][2]):
+            assert torch.equal(a, b), remat
+    assert flops["none"] < flops["dots"] < flops["full"], flops
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_remat_full_matches_reference(name):
+    """f32 under ``remat="full"``: the loss and every gradient leaf
+    against ``jax.value_and_grad`` of the reference's, whose scan body is
+    ``jax.checkpoint``-ed, within 1e-4."""
+    jc, tc, jp, tp = _models(name, "f32")
+    jc = dataclasses.replace(jc, remat="full")
+    tc = dataclasses.replace(tc, remat="full")
+    batch = _batch(jc)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jlm.loss_fn(p, jc, batch), has_aux=True))(jp)
+    loss, _, grads = tlm._value_and_grad(tp, tc, batch)
+    assert abs(float(loss) - float(jl)) <= 1e-4 * abs(float(jl))
+    want = leaves(tt.params_from_reference(jax.tree.map(np.asarray, jg), tc))
+    assert _leaf_rel(grads, want) <= TOL["f32"], name
 
 
 def _token_nll(logits, labels):
