@@ -136,7 +136,22 @@ Phases, each fatal on failure:
    xlstm-350m ``train_4k`` (time FD), each ``ok``, with the busiest
    rank's and rank 0's peak against the card, the bytes between devices
    by link class, the dominant roofline term and the trace's seconds
-   (printed, kept out of the kernels line).  No SpMM kernel may launch.
+   (printed, kept out of the kernels line).  No SpMM kernel may launch;
+13. tensor parallelism over ``model`` (``dist.sharding.place_state``,
+   ``models.transformer.forward_group``, the split steps), every mesh
+   position the card: (a) qwen3-4b at full width served from its state
+   laid out on a (1, 1, 4) mesh, f32 prefill logits within 1e-4 of
+   max|logit| of the one-device prefill, with the bf16 greedy tokens'
+   agreement, tokens per second and peak printed; (b) smollm-135m at
+   full width, the split spmd step on (1, 1, 3) against one device (f32,
+   loss and gradients within 1e-4 of max|g|) and the hier step on (1, 2,
+   3) with its seconds, tokens per second and peak; (c) the split step
+   traced on one placeholder against the card (argument bytes equal,
+   peak within 10% of ``max_memory_allocated``, as 12b); (d) phase 12c's qwen3-4b
+   ``train_4k`` cells (one pod, two): rank 0 fits the card, FLOPs per
+   device at most twice the useful FLOPs, no ``replicate`` copy.  The
+   host cells of phase 12c start with the script.  No SpMM kernel may
+   launch.
 
 At f32/f32 row 1 must equal its plain version bit for bit (phase 2):
 both round the step once, as one fused multiply-add.
@@ -147,6 +162,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import math
@@ -2266,6 +2282,242 @@ def train_path(device, card):
     return out
 
 
+TP_SERVE_MESH = (1, 1, 4)  # 13a: ("pod", "data", "model") on the card
+TP_TRAIN_MESH, TP_HIER_MESH = (1, 1, 3), (1, 2, 3)  # 13b, 13c
+TP_HIER_STEPS = 6  # 13b: hier steps, timed from the third
+
+
+def card_mesh(shape, device):
+    """A ``("pod", "data", "model")`` mesh whose every position is the
+    card."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, ("pod", "data", "model"),
+                     devices=[device] * math.prod(shape))
+
+
+def tp_path(device):
+    """Phase 13, tensor parallelism over ``model`` on the card, every
+    position of a mesh the card.  (a) qwen3-4b at full width served from
+    its state laid out on a (1, 1, 4) mesh (``dist.sharding
+    .place_state``): f32 prefill logits within 1e-4 of max|logit| of the
+    one-device prefill on phase 10's weights and prompts; the bf16
+    greedy tokens' agreement with the one-device ones, tokens per second
+    and the peak printed.  (b) smollm-135m at full width: the split spmd
+    step on (1, 1, 3) against the one-device step, f32, loss and every
+    gradient leaf within 1e-4 of max|g|; the hier step on (1, 2, 3) from
+    its laid-out state, seconds, tokens per second and peak printed.
+    (c) the split smollm step traced on one placeholder: its argument
+    bytes equal the card's and its peak lies within 10% of
+    ``max_memory_allocated``, 12b's band."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist.sharding import place_state
+    from repro_torch.launch import lm_serve
+    from repro_torch.launch.dryrun import _tensors
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import init_params
+    from repro_torch.opt import AdamW
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) serving from a laid-out state
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH, max_cache=LM_PROMPT + LM_GEN)
+    f32 = dataclasses.replace(cfg, activation_dtype=torch.float32,
+                              cache_dtype=torch.float32)
+    gen = torch.Generator(device).manual_seed(0)
+    params = init_params(cfg, gen)
+    toks = lm_serve.make_prompts(cfg, LM_BATCH, LM_PROMPT + 1, gen)
+    prompts = toks[:, :LM_PROMPT]
+    one_logits, _ = lm.prefill(params, f32, prompts)
+    one_tokens = lm_greedy(params, cfg, prompts, LM_GEN - 1)
+    mesh = card_mesh(TP_SERVE_MESH, device)
+    t0 = time.perf_counter()
+    placed, _ = place_state(params, None, mesh)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    tp_logits, _ = lm.prefill(placed, f32, prompts)
+    rel = float((tp_logits - one_logits).abs().max()
+                / one_logits.abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = lm_serve.serve(placed, cfg, prompts, LM_GEN, gen)
+    agree = float((torch.from_numpy(rec["tokens"]) == one_tokens)
+                  .float().mean())
+    split = sum(1 for pl in placed.leaves if pl.model_dim() is not None)
+    out["a"] = dict(mesh=list(TP_SERVE_MESH), f32_prefill_rel=rel,
+                    bf16_tokens_agree=agree, prefill_s=rec["prefill_s"],
+                    decode_s=rec["decode_s"], tok_s=rec["tok_s"],
+                    peak_bytes=torch.cuda.max_memory_allocated(),
+                    place_s=place_s, split_leaves=split,
+                    leaves=len(placed.leaves),
+                    rank_bytes=[placed.bytes_at((0, 0, r))
+                                for r in range(TP_SERVE_MESH[2])])
+    log(f"tp 13a: {LM_ARCH} on a {TP_SERVE_MESH} mesh of the card "
+        f"({split} of {len(placed.leaves)} leaves split; bytes per position "
+        f"{out['a']['rank_bytes']}, laid out in {place_s:.2f} s): f32 "
+        f"prefill logits max abs difference / max|.| {rel:.6g} against one "
+        f"device (bound 1e-4); bf16 greedy tokens agree on {agree:.3f}; "
+        f"prefill {rec['prefill_s']:.4f} s, {rec['tok_s']:.1f} tok/s, peak "
+        f"max_memory_allocated {out['a']['peak_bytes']} B")
+    if rel > 1e-4:
+        raise AssertionError(f"13a: split prefill differs: {rel}")
+    del placed, one_logits, tp_logits
+    gc.collect()
+
+    # (b) training split over model
+    tcfg = get_config(TRAIN_ARCH)
+    t32 = dataclasses.replace(tcfg, activation_dtype=torch.float32)
+    params = init_params(tcfg, torch.Generator(device).manual_seed(0))
+    stream = TokenStream(tcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = stream.batch(0)
+    l1, _, g1 = lm._value_and_grad(params, t32, batch)
+    opt = AdamW(lr=TRAIN_LR)
+    spmd = lm.make_train_step(t32, opt, card_mesh(TP_TRAIN_MESH, device))
+    l2, _, g2 = spmd.sync(params, batch)
+    loss_rel = abs(float(l1) - float(l2)) / abs(float(l1))
+    grad_rel = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(g2, g1))
+    del g1, g2
+    log(f"tp 13b: {TRAIN_ARCH} split spmd step on {TP_TRAIN_MESH} against "
+        f"one device (f32, {TRAIN_BATCH} x {TRAIN_SEQ}): loss {float(l2):.6f}"
+        f" rel {loss_rel:.3g}, gradients max |d| / max|g| {grad_rel:.3g} "
+        "(bound 1e-4)")
+    if loss_rel > 1e-4 or grad_rel > 1e-4:
+        raise AssertionError(f"13b: split step differs: {loss_rel} "
+                             f"{grad_rel}")
+    hmesh = card_mesh(TP_HIER_MESH, device)
+    pp, po = place_state(params, opt.init(params), hmesh)
+    hier = lm.make_hier_train_step(tcfg, opt, hmesh)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for i in range(TP_HIER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp, po, m = hier(pp, po, stream.batch(i))
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    step_s = sorted(secs[2:])[len(secs[2:]) // 2]
+    out["b"] = dict(loss_rel=loss_rel, grad_rel=grad_rel,
+                    hier_mesh=list(TP_HIER_MESH), hier_step_s=step_s,
+                    hier_tok_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                    hier_peak_bytes=torch.cuda.max_memory_allocated(),
+                    hier_losses=losses)
+    log(f"tp 13b: hier step on {TP_HIER_MESH} from the laid-out state: "
+        f"median step {step_s:.4f} s over steps 3-{TP_HIER_STEPS} = "
+        f"{out['b']['hier_tok_s']:.1f} tokens/s, peak max_memory_allocated "
+        f"{out['b']['hier_peak_bytes']} B; losses "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"13b: hier losses {losses}")
+    del pp, po, hier, params
+    gc.collect()
+
+    # (c) the split step traced on one placeholder against the card
+    from repro_torch.core.lowering import FakeTrace, storage_bytes
+    from repro_torch.models.layers import Unseeded
+    from repro_torch.placement import FakeDevice
+
+    def build(dev, gen, mesh):
+        params = init_params(tcfg, gen)
+        pp, po = place_state(params, opt.init(params), mesh)
+        del params
+        if isinstance(gen, torch.Generator):
+            data = {k: torch.randint(0, tcfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                                     device=dev) for k in ("inputs", "labels")}
+        else:
+            data = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ),
+                                   dtype=torch.int64, device=dev)
+                    for k in ("inputs", "labels")}
+        step = lm.make_train_step(tcfg, opt, mesh)
+        return (lambda: step(pp, po, data)), (pp, po, data)
+
+    fn, args = build(device, torch.Generator(device).manual_seed(2),
+                     card_mesh(TP_TRAIN_MESH, device))
+    arg_c = storage_bytes(_tensors(args))
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - arg_c
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    peak_c = torch.cuda.max_memory_allocated() - base
+    del fn, args, res
+    gc.collect()
+    fake = FakeDevice("cuda", 0)
+    fmesh = DeviceMesh(np.array([fake] * math.prod(TP_TRAIN_MESH),
+                                dtype=object).reshape(TP_TRAIN_MESH),
+                       ("pod", "data", "model"))
+    trace = FakeTrace({fake: {}})
+    t0 = time.perf_counter()
+    with trace.binding():
+        fn, args = build(fake, Unseeded(fake), fmesh)
+    bound = _tensors(args)
+    with trace.running(bound, grad=True):
+        res = fn()
+        peak_t = trace.peak[fake]
+    del res
+    arg_t = storage_bytes(bound)
+    ratio = peak_c / peak_t
+    out["c"] = dict(arg_bytes=arg_c, traced_arg_bytes=arg_t,
+                    peak_bytes=peak_c, traced_peak=peak_t, ratio=ratio,
+                    trace_s=time.perf_counter() - t0)
+    log(f"tp 13c: split {TRAIN_ARCH} step on {TP_TRAIN_MESH}, traced on one "
+        f"placeholder ({out['c']['trace_s']:.1f} s): arguments {arg_t} B "
+        f"against the card's {arg_c}; peak traced {peak_t} B, "
+        f"max_memory_allocated {peak_c} B: ratio {ratio:.4f} (band 1 +- "
+        f"{DRY_BAND}, as 12b)")
+    if arg_t != arg_c or abs(ratio - 1) > DRY_BAND:
+        raise AssertionError(f"13c: trace against card: {out['c']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tp phase 13 (a-c): {out['phase_s']:.1f} s")
+    return out
+
+
+def tp_cells(cells):
+    """Phase 13d: qwen3-4b ``train_4k`` on one pod and on two, from phase
+    12c's host traces of the split step: rank 0's peak against the
+    card, ``flops_per_dev`` against twice the reference's useful FLOPs
+    per device (``_useful_flops``), and no ``replicate`` copy."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import _useful_flops
+
+    out = {}
+    seq, batch, kind = SHAPES["train_4k"]
+    for tag, n_dev in (("qwen3-4b train_4k", 256),
+                       ("qwen3-4b train_4k 2 pods", 512)):
+        c = cells[tag]
+        useful = _useful_flops(get_config("qwen3-4b"), kind, batch * seq,
+                               n_dev)
+        out[tag] = dict(rank0=c["rank0"], fits=c["fits"],
+                        flops_per_dev=c["flops_per_dev"], useful=useful,
+                        by_kind=c["by_kind"])
+        log(f"tp 13d {tag}: rank 0 peak {c['rank0']} B "
+            f"({'fits' if c['fits'] else 'does NOT fit'} the card), "
+            f"flops/dev {c['flops_per_dev']:.6g} = "
+            f"{c['flops_per_dev'] / useful:.3f} x useful {useful:.6g}; "
+            "copies by kind (count, bytes a rank): " + ", ".join(
+                f"{k} {v['count']}, {v['bytes']:.6g}"
+                for k, v in c["by_kind"].items()))
+        if not c["fits"] or c["flops_per_dev"] > 2 * useful \
+                or "replicate" in c["by_kind"]:
+            raise AssertionError(f"13d {tag}: {out[tag]}")
+    return out
+
+
 # phase 12c's cells: (arch, shape, multi_pod), traced on the host
 LM_DRY_CELLS = (("qwen3-4b", "train_4k", False),
                 ("qwen3-4b", "prefill_32k", False),
@@ -2508,7 +2760,9 @@ def lm_dry_path(device, procs):
                           fits=fits, ici=coll["ici_bytes"],
                           dci=coll["dci_bytes"], dominant=rf["dominant"],
                           trace_s=rec["trace_s"],
-                          cost_source=rec["cost_source"])
+                          cost_source=rec["cost_source"],
+                          flops_per_dev=rec["flops_per_dev"],
+                          by_kind=coll["by_kind"])
         log(f"dry 12c {tag} (traced on the host, {rec['cost_source']}, "
             f"{rec['cell']['ranks']} rank(s) of {rec['mesh']}): busiest "
             f"rank {mem['rank']} peak {busiest} B, rank 0 "
@@ -2940,6 +3194,21 @@ def main():
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    # phase 12c's cells trace on the host beside every card phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_dry_") as tmp:
+        lm_procs = start_lm_cells(tmp)
+        try:
+            return phases(device, card, start, xs, lm_procs)
+        finally:
+            for *_, proc in lm_procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+
+def phases(device, card, start, xs, lm_procs):
+    """Phases 2 to 13 on the card, then the last lines."""
+    import torch
 
     def phase(name):
         log(f"[{time.perf_counter() - start:7.1f} s] {name}")
@@ -3035,33 +3304,34 @@ def main():
     if dry_launches == 0:
         raise AssertionError("row 1 must run in phase 9's real solves")
     counts["row1"] += dry_launches
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_dry_") as tmp:
-        # phase 12c's cells trace on the host beside phases 10 to 12b
-        lm_procs = start_lm_cells(tmp)
-        try:
-            phase("phase 10: LM serving")
-            xs.reset_launches()
-            lm = lm_path(device)
-            if any(xs.LAUNCHES.values()):
-                raise AssertionError(f"the LM path launched an SpMM "
-                                     f"kernel: {dict(xs.LAUNCHES)}")
-            phase("phase 11: LM training")
-            xs.reset_launches()
-            train = train_path(device, card)
-            if any(xs.LAUNCHES.values()):
-                raise AssertionError(f"the training path launched an SpMM "
-                                     f"kernel: {dict(xs.LAUNCHES)}")
-            phase("phase 12: the LM dry run")
-            xs.reset_launches()
-            lm_dry, _ = lm_dry_path(device, lm_procs)
-            if any(xs.LAUNCHES.values()):
-                raise AssertionError(f"the LM dry run launched an SpMM "
-                                     f"kernel: {dict(xs.LAUNCHES)}")
-        finally:
-            for *_, proc in lm_procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
+    phase("phase 10: LM serving")
+    xs.reset_launches()
+    lm = lm_path(device)
+    if any(xs.LAUNCHES.values()):
+        raise AssertionError(f"the LM path launched an SpMM "
+                             f"kernel: {dict(xs.LAUNCHES)}")
+    phase("phase 11: LM training")
+    xs.reset_launches()
+    train = train_path(device, card)
+    if any(xs.LAUNCHES.values()):
+        raise AssertionError(f"the training path launched an SpMM "
+                             f"kernel: {dict(xs.LAUNCHES)}")
+    # phase 13's card work before phase 12, whose host cells (started
+    # with the script) it waits for
+    phase("phase 13: tensor parallelism over model")
+    xs.reset_launches()
+    tp = tp_path(device)
+    if any(xs.LAUNCHES.values()):
+        raise AssertionError(f"the split LM path launched an SpMM "
+                             f"kernel: {dict(xs.LAUNCHES)}")
+    phase("phase 12: the LM dry run")
+    xs.reset_launches()
+    lm_dry, lm_cells = lm_dry_path(device, lm_procs)
+    if any(xs.LAUNCHES.values()):
+        raise AssertionError(f"the LM dry run launched an SpMM "
+                             f"kernel: {dict(xs.LAUNCHES)}")
+    phase("phase 13d: the split step's production cells")
+    tp["d"] = tp_cells(lm_cells)
     kernels = []
     for key, name, replaces in KERNELS:
         kernels.append(entry(
@@ -3079,6 +3349,7 @@ def main():
     kernels[0]["lm"] = lm
     kernels[0]["train"] = train
     kernels[0]["lm_dry_run"] = lm_dry
+    kernels[0]["tp"] = tp
     phase("done")
     log(json.dumps({"kernels": kernels}))
     log(card)

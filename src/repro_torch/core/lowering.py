@@ -73,7 +73,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from ..dist.topology import LINK_CLASSES
-from ..placement import FakeDevice, current_copy_kind, placeholder
+from .. import placement as _placement
+from ..placement import FakeDevice, copy_kind, current_copy_kind, placeholder
 
 __all__ = [
     "FakeTrace",
@@ -82,6 +83,7 @@ __all__ = [
     "LoweredCG",
     "MemoryAnalysis",
     "storage_bytes",
+    "tally",
 ]
 
 _DEVICE = torch._C.TensorBase.__dict__["device"]  # the .device property
@@ -99,13 +101,27 @@ def storage_bytes(tensors) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Copy:
-    """One copy between two placeholders, as the trace saw it."""
+    """One copy between two placeholders, as the trace saw it, or
+    ``count`` of them with the same ends, link and kind, ``nbytes`` in
+    all (:func:`tally`)."""
 
     src: FakeDevice
     dst: FakeDevice
     nbytes: int
     link: str  # "ici" | "dci"
     kind: str  # the port's function that moved it
+    count: int = 1
+
+
+def tally(copies) -> list:
+    """``copies`` merged by ends, link and kind (first seen first)."""
+    out: dict = {}
+    for c in copies:
+        key = (c.src, c.dst, c.link, c.kind)
+        n, b = out.get(key, (0, 0))
+        out[key] = (n + c.count, b + c.nbytes)
+    return [Copy(s, d, b, link, kind, n)
+            for (s, d, link, kind), (n, b) in out.items()]
 
 
 _NO_BYTES = {torch.ops.aten.empty, torch.ops.aten.empty_strided,
@@ -181,7 +197,10 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         trace = self.trace
         ins = list(_tensors((args, kwargs)))
-        placed = {d for d in map(trace.where, ins) if d is not None}
+        # a 0-d input goes with the others (a backward formula's scalar,
+        # made with no placed input, follows the last op's device)
+        wide = [t for t in ins if t.dim()] or ins
+        placed = {d for d in map(trace.where, wide) if d is not None}
         if len(placed) > 1:  # as a card would, refuse to mix devices
             raise RuntimeError(f"{func} mixes devices {sorted(placed)}")
         if placed:
@@ -203,6 +222,32 @@ class _Counter(TorchDispatchMode):
             trace.allocated(t)
         trace.count(func, dev, args, kwargs, out, ins, outs)
         return out
+
+
+# the kind of the copies that carry a copy's gradient back
+_BACKWARD_KIND = {"all-gather": "reduce-scatter",
+                  "reduce-scatter": "all-gather"}
+
+
+class _Move(torch.autograd.Function):
+    """A copy between placeholders that autograd differentiates: the
+    backward copies the gradient back, tagged as the collective that
+    carries it (the backward of a gather is a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, trace, dest):
+        src = trace.device_of(t)
+        ctx.trace, ctx.src = trace, src
+        ctx.kind = current_copy_kind()
+        with trace.placed(dest):
+            out = t.clone()
+        trace.record_copy(src, dest, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        with copy_kind(_BACKWARD_KIND.get(ctx.kind, ctx.kind)):
+            return ctx.trace.move(g, ctx.src), None, None
 
 
 class FakeTrace:
@@ -272,8 +317,23 @@ class FakeTrace:
     @contextlib.contextmanager
     def binding(self):
         """Make fake tensors on placeholders."""
-        with _Placement(self), _Counter(self):
+        with _Placement(self), _Counter(self), self._active():
             yield self
+
+    @contextlib.contextmanager
+    def _active(self):
+        _placement._TRACES.append(self)
+        try:
+            yield
+        finally:
+            _placement._TRACES.remove(self)
+
+    def move(self, t, dest):
+        """``t`` copied to placeholder ``dest``, recorded, differentiable
+        (``placement.move``)."""
+        if self.device_of(t) == dest:
+            return t
+        return _Move.apply(t, self, dest)
 
     @contextlib.contextmanager
     def running(self, bound=(), grad: bool = False):
@@ -290,7 +350,7 @@ class FakeTrace:
             if id(st) not in self._known:
                 self._known.add(id(st))
                 self._add(self.device_of(t), st.nbytes())
-        with _Placement(self), _Counter(self), \
+        with _Placement(self), _Counter(self), self._active(), \
                 torch.set_grad_enabled(grad):
             yield self
 
@@ -447,11 +507,11 @@ class Lowered:
         received: dict = {}
         total = 0
         for c in self.copies:
-            out["ops"] += 1
+            out["ops"] += c.count
             out[f"{c.link}_bytes"] += c.nbytes / n
             k = out["by_kind"].setdefault(c.kind, {
                 "count": 0, "bytes": 0.0, "ici_bytes": 0.0, "dci_bytes": 0.0})
-            k["count"] += 1
+            k["count"] += c.count
             k["bytes"] += c.nbytes / n
             k[f"{c.link}_bytes"] += c.nbytes / n
             sent[c.src] = sent.get(c.src, 0) + c.nbytes

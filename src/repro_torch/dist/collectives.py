@@ -28,9 +28,12 @@ import numpy as np
 import torch
 
 from ..core.precision import _log2_ratio, _pow2
+from ..placement import copy_kind, empty_on, move
 from .topology import Topology, all_to_all, reduce_scatter
 
 __all__ = [
+    "ModelGroup",
+    "Pieces",
     "reduce_partials",
     "sparse_exchange",
     "hierarchical_psum",
@@ -297,3 +300,204 @@ def sparse_exchange(bands, send_idx, recv_passes, topo, rows_out: int,
     elif groups is not None:
         msgs = all_to_all(msgs, groups)
     return [scatter_out(m, r) for m, r in zip(msgs, recv_passes)]
+
+
+# --------------------------------------------------------------------- #
+# tensor parallelism: the collectives of one model group
+# --------------------------------------------------------------------- #
+def _narrowed(like, bounds):
+    """A stand-in of ``like``'s flattened slice ``bounds`` (its shape and
+    dtype, for a phantom's share)."""
+    lo, hi = bounds
+    return like.reshape(-1).narrow(0, lo, hi - lo)
+
+
+@dataclasses.dataclass
+class Pieces:
+    """One leaf over a model group: ``parts[r]`` is model rank ``r``'s
+    piece (``None`` on a phantom rank, see :class:`ModelGroup`),
+    ``shape`` the whole tensor's and ``dim`` the dimension split over
+    the group in rank order (``None``: every rank holds it whole)."""
+
+    parts: list
+    shape: tuple
+    dim: int | None
+
+    def like(self):
+        """A live part (every part has the same shape and dtype)."""
+        return next(p for p in self.parts if p is not None)
+
+
+class ModelGroup:
+    """The positions of a mesh that differ only in their ``model``
+    coordinate, in model rank order: one tensor-parallel group.
+
+    One process drives the group: an activation is a list of per-rank
+    tensors, each on its rank's device, and a collective is a tensor
+    operation across the list made of ``.to(device)`` copies and sums,
+    tagged with ``placement.copy_kind``, so that autograd differentiates
+    it (the backward of a gather is the matching reduce) and a
+    ``core.lowering.FakeTrace`` counts it by kind and link.  A sum runs
+    over the ranks in rank order on every rank, so every rank holds the
+    same bits; ranks on one device share its result.
+
+    ``live`` lists the ranks that compute (default: all).  The others
+    are phantoms, which only the dry run has (``launch.dryrun``): their
+    list entries are ``None``, nothing runs for them, and what they send
+    to a live rank is a fake tensor of the shape a live rank sends, so
+    that the live ranks' work, memory and copies are those of the whole
+    group."""
+
+    def __init__(self, devices, live=None):
+        self.devices = list(devices)
+        self.n = len(self.devices)
+        self.live = tuple(range(self.n)) if live is None else tuple(live)
+
+    def __repr__(self):
+        return f"ModelGroup({self.devices}, live={self.live})"
+
+    def each(self, fn, *lists):
+        """``[fn(l0[r], l1[r], ...)]`` for the live ranks (``None`` for
+        the phantoms)."""
+        return [fn(*[lst[r] for lst in lists]) if r in self.live else None
+                for r in range(self.n)]
+
+    def bounds(self, size: int) -> list:
+        """Rank ``r``'s chunk ``[lo, hi)`` of ``size`` split evenly."""
+        w = size // self.n
+        return [(r * w, (r + 1) * w) for r in range(self.n)]
+
+    def _part(self, xs, r, like=None):
+        """``xs[r]``, or a fake of ``like``'s shape on a phantom."""
+        if xs[r] is not None:
+            return xs[r]
+        like = next(x for x in xs if x is not None) if like is None else like
+        return empty_on(like.shape, like.dtype, self.devices[r])
+
+    def _shared(self, fn):
+        """``fn(r)`` for each live rank, once per device (ranks on one
+        device share the result)."""
+        out, done = [None] * self.n, {}
+        for r in self.live:
+            key = str(self.devices[r])
+            if key not in done:
+                done[key] = fn(r)
+            out[r] = done[key]
+        return out
+
+    @copy_kind("all-reduce")
+    def all_reduce(self, xs):
+        """Every rank gets the ranks' sum (``psum``), each element summed
+        in rank order.  Where the ranks divide its elements, as a ring
+        would move it: a reduce-scatter (rank ``j`` sums chunk ``j`` of
+        the flattened tensors) then an all-gather of the sums, so each
+        rank receives ``2 (n - 1) / n`` of the tensor; else each rank
+        sums every rank's whole tensor."""
+        like = next(x for x in xs if x is not None)
+        size, shape = like.numel(), like.shape
+        if size % self.n:
+            def whole(r):
+                dev = self.devices[r]
+                parts = [move(self._part(xs, k), dev) for k in range(self.n)]
+                acc = parts[0]
+                for t in parts[1:]:
+                    acc = acc + t
+                return acc
+            return self._shared(whole)
+        w = size // self.n
+        bounds = [(j * w, (j + 1) * w) for j in range(self.n)]
+        flat = [None if x is None else x.reshape(-1) for x in xs]
+
+        def chunk(j):
+            lo, hi = bounds[j]
+            dev = self.devices[j]
+            parts = [move(self._part(flat, k).narrow(0, lo, hi - lo), dev)
+                     for k in range(self.n)]
+            acc = parts[0]
+            for t in parts[1:]:
+                acc = acc + t
+            return acc
+
+        sums = [chunk(j) if j in self.live else None for j in range(self.n)]
+
+        def on(r):
+            dev = self.devices[r]
+            parts = [move(self._part(sums, j, _narrowed(like, bounds[j])),
+                          dev) for j in range(self.n)]
+            return torch.cat(parts).reshape(shape)
+        return self._shared(on)
+
+    @copy_kind("all-reduce")
+    def all_max(self, xs):
+        """Every rank gets the ranks' elementwise maximum (``pmax``)."""
+        def on(r):
+            dev = self.devices[r]
+            parts = [move(self._part(xs, k), dev) for k in range(self.n)]
+            acc = parts[0]
+            for t in parts[1:]:
+                acc = torch.maximum(acc, t)
+            return acc
+        return self._shared(on)
+
+    @copy_kind("all-gather")
+    def all_gather(self, xs, dim: int):
+        """Every rank gets the ranks' tensors concatenated along ``dim``
+        in rank order."""
+        def on(r):
+            dev = self.devices[r]
+            return torch.cat([move(self._part(xs, k), dev)
+                              for k in range(self.n)], dim=dim)
+        return self._shared(on)
+
+    def take(self, leaf: Pieces, dim=None, bounds=None):
+        """Rank ``s`` gets ``whole.narrow(dim, *bounds[s])`` of the whole
+        tensor of ``leaf`` (``dim`` ``None``: all of it), from the pieces
+        at rest.  A rank reads its own piece where that holds what it
+        needs; otherwise the pieces are relaid out at use, never at
+        rest: an ``"all-gather"`` where a rank needs the whole tensor,
+        an ``"all-to-all"`` where it needs a slice."""
+        if dim is None or bounds is None:
+            dim, bounds = 0, [(0, leaf.shape[0])] * self.n
+        whole = all(b == (0, leaf.shape[dim]) for b in bounds)
+        at = leaf.dim
+        w = None if at is None else leaf.shape[at] // self.n
+        like = None
+        out = [None] * self.n
+        done = {}
+        for s in self.live:
+            lo, hi = bounds[s]
+            own = leaf.parts[s]
+            key = (str(self.devices[s]), lo, hi)
+            if at is not None and key in done:  # same device, same slice
+                out[s] = done[key]
+                continue
+            if at is None:
+                out[s] = own if (lo, hi) == (0, own.shape[dim]) \
+                    else own.narrow(dim, lo, hi - lo)
+                continue
+            if at == dim and s * w <= lo and hi <= (s + 1) * w:
+                out[s] = own.narrow(dim, lo - s * w, hi - lo)
+                continue
+            if like is None:
+                like = leaf.like()
+            dev = self.devices[s]
+            parts = []
+            with copy_kind("all-gather" if whole else "all-to-all"):
+                for r in range(self.n):
+                    p = self._part(leaf.parts, r, like)
+                    if at == dim:  # the pieces that overlap [lo, hi)
+                        a, b = max(lo, r * w), min(hi, (r + 1) * w)
+                        if a >= b:
+                            continue
+                        p = p.narrow(dim, a - r * w, b - a)
+                    elif (lo, hi) != (0, leaf.shape[dim]):
+                        p = p.narrow(dim, lo, hi - lo)
+                    parts.append(move(p, dev))
+                out[s] = parts[0] if len(parts) == 1 \
+                    else torch.cat(parts, dim=at)
+            done[key] = out[s]
+        return out
+
+    def whole(self, leaf: Pieces):
+        """Every rank gets the whole tensor of ``leaf``."""
+        return self.take(leaf)

@@ -121,9 +121,29 @@ def remesh(tree, specs, mesh):
     tree of dicts and lists (or an ``nn.Module``, as its parameters by
     name) whose leaves are arrays, tensors or ``sharding.Placed``;
     returns the same tree of ``sharding.Placed``.
+
+    A laid-out state (``sharding.PlacedTree``, what the train steps take
+    and give back) moves whole: its pieces are joined and laid out on
+    ``mesh`` by ``specs`` (``None``: ``param_specs`` of its tree on
+    ``mesh``), whatever the two meshes' ``model`` sizes; a dict of them
+    (an optimizer state) moves leaf by leaf, a ``count`` replicated.
     """
     from ..opt.tree import tree_map
-    from .sharding import Placed, _as_tree, shardings
+    from .sharding import (
+        Placed, Placement, PlacedTree, _as_tree, param_specs, place_tree,
+        shardings,
+    )
+
+    if isinstance(tree, PlacedTree):
+        whole = tree.full()
+        specs = param_specs(whole, mesh) if specs is None else specs
+        return place_tree(whole, specs, mesh)
+    if isinstance(tree, dict) and any(isinstance(v, PlacedTree)
+                                      for v in tree.values()):
+        return {k: remesh(v, specs, mesh) if isinstance(v, PlacedTree)
+                else Placement(mesh, ()).place(
+                    v.full() if isinstance(v, Placed) else v)
+                for k, v in tree.items()}
 
     def place(x, pl):
         return pl.place(x.full() if isinstance(x, Placed) else x)

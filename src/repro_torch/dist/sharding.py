@@ -27,6 +27,12 @@ trailing partial period's layers are unstacked in both.
 :class:`Placement` objects; ``Placement.place`` splits a tensor into the
 piece each mesh position holds (:class:`Placed`), and ``Placed.full``
 (or ``numpy.asarray``) joins them again, bit for bit.
+
+This is the layout the training and serving state lives in:
+:func:`place_state` lays parameters and optimizer moments out as
+:class:`PlacedTree`s, which the train steps, ``prefill`` and
+``decode_step`` take and give back (``models.lm``); a checkpoint holds
+``full()`` and is laid out again on restore.
 """
 from __future__ import annotations
 
@@ -37,10 +43,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..opt.tree import leaves, module_dict, tree_map
+from ..opt.tree import leaves, module_dict, tree_map, unflatten
+from .collectives import Pieces
 
-__all__ = ["Placed", "Placement", "batch_specs", "cache_specs",
-           "param_specs", "shardings", "spec_leaves"]
+__all__ = ["Placed", "PlacedTree", "Placement", "batch_specs",
+           "cache_specs", "group_pieces", "param_specs", "place_state",
+           "place_tree", "shardings", "spec_leaves"]
 
 
 def _shape(leaf) -> tuple:
@@ -148,6 +156,42 @@ class Placed:
         """The whole tensor, on the first position's device."""
         return _join(self)
 
+    @property
+    def dims(self) -> tuple:
+        """Each dimension's axes (``()``: whole)."""
+        spec = tuple(self.spec) + (None,) * (len(self.shape)
+                                             - len(self.spec))
+        return tuple(_axes(e) for e in spec)
+
+    def model_dim(self, axis: str = "model"):
+        """The dimension split over ``axis`` (``None``: none is)."""
+        return next((d for d, a in enumerate(self.dims) if axis in a), None)
+
+    def owners(self) -> list:
+        """Positions whose pieces hold every element once: coordinate 0
+        on each axis that splits no dimension, in row-major order."""
+        split = {a for axes in self.dims for a in axes}
+        names = self.mesh.axis_names
+        return [idx for idx in np.ndindex(self.pieces.shape)
+                if all(i == 0 for a, i in zip(names, idx) if a not in split)]
+
+    def map(self, fn, *others) -> "Placed":
+        """``fn(piece, *others' pieces)`` at every position, once per
+        distinct piece of ``self`` (positions that share a piece share
+        the result); ``None`` stays ``None``."""
+        out = np.empty(self.pieces.shape, dtype=object)
+        done = {}
+        for idx in np.ndindex(out.shape):
+            p = self.pieces[idx]
+            if p is None:
+                continue
+            if id(p) not in done:
+                done[id(p)] = fn(p, *[o.pieces[idx] for o in others])
+            out[idx] = done[id(p)]
+        some = done[next(iter(done))] if done else None
+        dtype = self.dtype if some is None else some.dtype
+        return Placed(self.spec, self.mesh, out, self.shape, dtype)
+
     def __array__(self, dtype=None, copy=None):
         arr = self.full().detach().cpu().numpy()
         return arr if dtype is None else arr.astype(dtype)
@@ -160,11 +204,13 @@ class Placement:
     mesh: object
     spec: tuple
 
-    def place(self, x) -> Placed:
+    def place(self, x, positions=None) -> Placed:
         """``x`` (a tensor or array) split by the spec: the position at
         coordinate ``c`` on the axes of a dimension's entry holds chunk
         ``c`` of that dimension (the entry's axes linearized first-major),
-        moved to its device; replicated dimensions stay whole."""
+        moved to its device; replicated dimensions stay whole.  With
+        ``positions`` (a set of mesh indices) only those positions get a
+        piece, the others ``None`` (the dry run's phantoms)."""
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(np.asarray(x)))
         t = t.detach()
@@ -173,6 +219,8 @@ class Placement:
         pieces = np.empty(self.mesh.devices.shape, dtype=object)
         cache = {}
         for idx in np.ndindex(pieces.shape):
+            if positions is not None and idx not in positions:
+                continue
             coords = dict(zip(names, idx))
             sl = []
             for dim, entry in enumerate(spec):
@@ -192,7 +240,10 @@ class Placement:
             key = (tuple(sl), str(dev))
             if key not in cache:
                 piece = t[tuple(slice(a, b) for a, b in sl)]
-                cache[key] = piece.to(dev)
+                moved = piece.to(dev)
+                if moved is piece and piece.numel() != t.numel():
+                    moved = piece.clone()  # a piece of its own, not a view
+                cache[key] = moved
             pieces[idx] = cache[key]
         return Placed(tuple(self.spec), self.mesh, pieces,
                       tuple(t.shape), t.dtype)
@@ -240,3 +291,107 @@ def shardings(specs, mesh):
 def spec_leaves(specs) -> list:
     """The specs of a spec tree, in ``opt.tree.leaves`` order."""
     return leaves(specs, is_leaf=_is_spec)
+
+
+# --------------------------------------------------------------------- #
+# the state's layout
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class PlacedTree:
+    """A tree laid out over a mesh, the layout the training and serving
+    state lives in: ``leaves`` are :class:`Placed`, in ``opt.tree.leaves``
+    order of ``template``, whose structure they fill (an ``LMParams`` or
+    a dict; its own leaves are empty tensors and hold nothing)."""
+
+    template: object
+    leaves: tuple
+
+    @property
+    def mesh(self):
+        return self.leaves[0].mesh
+
+    def full(self):
+        """The whole tensors, in the template's structure, on the first
+        position's device (a checkpoint saves this)."""
+        return unflatten(self.template, [pl.full() for pl in self.leaves])
+
+    def map(self, fn, *others) -> "PlacedTree":
+        """:meth:`Placed.map` leaf by leaf, with the leaves of ``others``
+        (trees of the same layout)."""
+        return PlacedTree(self.template, tuple(
+            pl.map(fn, *[o.leaves[j] for o in others])
+            for j, pl in enumerate(self.leaves)))
+
+    def bytes_at(self, idx) -> int:
+        """Bytes of position ``idx``'s pieces."""
+        return sum(pl.pieces[idx].numel() * pl.pieces[idx].element_size()
+                   for pl in self.leaves if pl.pieces[idx] is not None)
+
+
+def _path_spec(specs, name: str):
+    node = specs
+    for part in name.split("."):
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    return node
+
+
+def _skeleton(tree):
+    """``tree``'s structure with empty leaves."""
+    return tree_map(lambda t: torch.empty(0), tree)
+
+
+def place_tree(tree, specs, mesh, positions=None) -> PlacedTree:
+    """``tree`` (an ``nn.Module`` or a tree of dicts and lists) laid out
+    by ``specs`` (its :func:`param_specs`, or any spec tree of the same
+    shape): each leaf :meth:`Placement.place`-d on ``mesh``."""
+    if isinstance(tree, nn.Module):
+        sl = [_path_spec(specs, n) for n, _ in tree.named_parameters()]
+    else:
+        sl = spec_leaves(specs)
+    xs = leaves(tree)
+    if len(sl) != len(xs):
+        raise ValueError(f"{len(sl)} specs for {len(xs)} leaves")
+    return PlacedTree(_skeleton(tree), tuple(
+        Placement(mesh, s).place(x, positions) for x, s in zip(xs, sl)))
+
+
+def place_state(params, opt_state, mesh, *, model_axis: str = "model",
+                positions=None):
+    """Lay the training state out on ``mesh`` as the reference's
+    ``shardings(param_specs)`` does: every parameter by
+    :func:`param_specs`, the optimizer's moments (``m`` and ``v`` of
+    ``AdamW``, ``mom`` of ``sgd_momentum``) on the same specs, and
+    ``count`` replicated.  Returns ``(params, opt_state)``: a
+    :class:`PlacedTree` and a dict of them (``count`` a :class:`Placed`),
+    each position holding the piece ``NamedSharding(mesh, spec)`` gives
+    a reference device.  ``opt_state`` may be ``None``."""
+    specs = param_specs(params, mesh, model_axis)
+    placed = place_tree(params, specs, mesh, positions)
+    if opt_state is None:
+        return placed, None
+    out = {}
+    for k, v in opt_state.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = Placement(mesh, ()).place(v, positions)
+        else:
+            out[k] = place_tree(v, specs, mesh, positions)
+    return placed, out
+
+
+def group_pieces(placed: PlacedTree, idx, axis: str = "model") -> list:
+    """The model group through position ``idx`` (its other
+    coordinates): one ``collectives.Pieces`` per leaf, the pieces in
+    model rank order."""
+    mesh = placed.mesh
+    names = mesh.axis_names
+    k = names.index(axis)
+    n = mesh.shape[axis]
+    out = []
+    for pl in placed.leaves:
+        parts = []
+        for r in range(n):
+            at = list(idx)
+            at[k] = r
+            parts.append(pl.pieces[tuple(at)])
+        out.append(Pieces(parts, tuple(pl.shape), pl.model_dim(axis)))
+    return out

@@ -24,17 +24,26 @@ Usage:
 
 ``--arch`` alone traces every shape of that arch, ``--shape`` alone
 every arch at that shape; ``--smoke`` takes the archs' SMOKE widths (a
-quick check of the path).  A train cell takes ~25 s on the host
-(qwen3-4b), xlstm-350m's ~2 min (its time loop, see below).
+quick check of the path).
+
+The state is laid out as the reference's ``shardings(param_specs)``
+places it, and the programs split their work over ``"model"`` as GSPMD
+partitions the reference's (``models.transformer.forward_group``): each
+rank holds its pieces and does its share; the copies between a group's
+ranks are its collectives (``all-reduce``, ``all-gather``,
+``reduce-scatter``, ``all-to-all``).  Only model ranks 0 and 1 of a
+group run under the trace; the others are phantoms
+(``collectives.ModelGroup``) that send the live ranks fake tensors of
+their shares and take rank 1's numbers (:func:`_fill_phantoms`).
 
 Stated divergences of the LM cells from the reference's:
 
-* no tensor parallelism over ``"model"``: the port's step computes each
-  data rank once, at model index 0, and the ``"model"`` axis holds
-  replicas, so rank 0 holds the whole f32 parameters and AdamW state;
-* the replica copies: the one-process hier step copies the parameters
-  from rank 0 to every other data rank at every step (``copy_kind``
-  ``"replicate"``), and scatters the batch's rows (``"scatter"``);
+* the train cells run the hier step (the paper's ladder over the data
+  axes, ``"scatter"`` of the batch's rows from rank 0) where the
+  reference's cell runs its spmd step;
+* a phantom rank's unfused bytes are rank 1's, which leave out the sums
+  of the gradients the phantoms send back (within 5% of a full trace at
+  four ranks, ``test_rank_replay_equals_every_rank_traced``);
 * no HLO: the copies are the trace's (``Lowered.collectives()``), not
   ``analyze_collectives`` of compiled text; FLOPs and bytes accessed are
   counted op by op, unfused;
@@ -315,84 +324,140 @@ def _time_loop(cfg, kind) -> bool:
 class _RankSteps:
     """``make_hier_train_step``'s ``rank_step`` under a trace.
 
-    Each rank's loss and backward is a segment of its device's timeline:
-    its peak is kept apart from the rest of the step's (``inside``, by
-    device; the trace's own ``peak`` keeps what happens outside), so
-    that the time FD extrapolates each part on its own.  With ``real``
-    set, only the first ``real`` ranks run under the trace and each
-    later rank replays the last real one's (its rows and its replica's
-    shapes are the same): the rise of its device's peak over the bytes
-    live when it started, its FLOPs and bytes accessed, and its outputs,
-    fake tensors of the same shapes on the rank's device.  The copies a
-    rank's step sends or receives are outside ``rank_step`` and traced
-    for every rank."""
+    Each data rank's model group runs its loss and backward
+    (``models.lm.group_value_and_grad``), a segment of its devices'
+    timelines: each device's peak there is kept apart from the rest of
+    the step's (``inside``, by device; the trace's own ``peak`` keeps
+    what happens outside), so that the time FD extrapolates each part on
+    its own.  With ``real`` set, only the first ``real`` data ranks run
+    under the trace and each later one replays the last real one's (its
+    rows and its pieces' shapes are the same), model rank by model
+    rank: the rise of each device's peak over the bytes live when it
+    started, its FLOPs and bytes accessed, the copies between the
+    group's ranks (the tensor-parallel collectives, moved onto the
+    replaying group's devices), and its outputs, fake tensors of the
+    same shapes on the same ranks.  The copies a data rank's step sends
+    to or receives from other data ranks are outside ``rank_step`` and
+    traced for every data rank."""
 
     def __init__(self, trace, real: int | None = 2):
         self.trace, self.real = trace, real
         self.calls, self.replayed, self.last = 0, 0, None
         self.inside: dict = {}
 
-    def __call__(self, params, cfg, shard):
-        from ..models.lm import _value_and_grad
-        from ..opt.tree import leaves
+    def __call__(self, pieces, template, cfg, shards, group):
+        from ..core.lowering import tally
+        from ..models.lm import group_value_and_grad
 
         trace = self.trace
-        dev = trace.device_of(leaves(params)[0])
+        devs = {r: group.devices[r] for r in group.live}
         self.calls += 1
         if self.real is not None and self.calls > self.real:
-            return self._replay(dev)
-        live0 = trace.live.get(dev, 0)
-        outside = trace.peak.get(dev, 0)
-        f0 = trace.flops.get(dev, 0)
-        b0 = trace.bytes_accessed.get(dev, 0)
-        trace.peak[dev] = live0
-        loss, metrics, grads = _value_and_grad(params, cfg, shard)
-        rise = trace.peak[dev] - live0
-        self._inside(dev, trace.peak[dev])
-        trace.peak[dev] = max(outside, trace.live.get(dev, 0))
-        outs = [loss] + [metrics[k] for k in sorted(metrics)] + grads
-        self.last = dict(
-            rise=rise, flops=trace.flops.get(dev, 0) - f0,
-            bytes=trace.bytes_accessed.get(dev, 0) - b0,
-            keys=sorted(metrics),
-            shapes=[(tuple(t.shape), t.dtype) for t in outs])
+            return self._replay(group)
+        before = {r: (trace.live.get(d, 0), trace.peak.get(d, 0),
+                      trace.flops.get(d, 0), trace.bytes_accessed.get(d, 0))
+                  for r, d in devs.items()}
+        n_copies = len(trace.copies)
+        for r, d in devs.items():
+            trace.peak[d] = before[r][0]
+        loss, metrics, grads = group_value_and_grad(pieces, template, cfg,
+                                                    shards, group)
+        rank_of = {str(d): r for r, d in enumerate(group.devices)}
+        rec = {"rise": {}, "flops": {}, "bytes": {}}
+        for r, d in devs.items():
+            live0, outside, f0, b0 = before[r]
+            rec["rise"][r] = trace.peak[d] - live0
+            self._inside(d, trace.peak[d])
+            trace.peak[d] = max(outside, trace.live.get(d, 0))
+            rec["flops"][r] = trace.flops.get(d, 0) - f0
+            rec["bytes"][r] = trace.bytes_accessed.get(d, 0) - b0
+        rec["copies"] = [(rank_of[str(c.src)], rank_of[str(c.dst)], c.nbytes,
+                          c.link, c.kind, c.count)
+                         for c in tally(trace.copies[n_copies:])]
+        r0 = group.live[0]
+        outs = [(r0, loss)] + [(r0, metrics[k]) for k in sorted(metrics)]
+        outs += [(r, g[r]) for g in grads for r in group.live]
+        rec["keys"] = sorted(metrics)
+        rec["shapes"] = [(r, tuple(t.shape), t.dtype) for r, t in outs]
+        self.last = rec
         return loss, metrics, grads
 
     def _inside(self, dev, peak):
         self.inside[dev] = max(self.inside.get(dev, 0), peak)
 
-    def _replay(self, dev):
+    def _replay(self, group):
+        from ..core.lowering import Copy
+
         trace, rec = self.trace, self.last
         self.replayed += 1
-        self._inside(dev, trace.live.get(dev, 0) + rec["rise"])
-        trace.flops[dev] = trace.flops.get(dev, 0) + rec["flops"]
-        trace.bytes_accessed[dev] = (trace.bytes_accessed.get(dev, 0)
-                                     + rec["bytes"])
-        outs = [trace.empty(s, dt, dev) for s, dt in rec["shapes"]]
-        trace.peak[dev] = max(trace.peak.get(dev, 0),
-                              trace.live.get(dev, 0))
+        for r in group.live:
+            d = group.devices[r]
+            self._inside(d, trace.live.get(d, 0) + rec["rise"][r])
+            trace.flops[d] = trace.flops.get(d, 0) + rec["flops"][r]
+            trace.bytes_accessed[d] = (trace.bytes_accessed.get(d, 0)
+                                       + rec["bytes"][r])
+        for src, dst, nbytes, link, kind, count in rec["copies"]:
+            trace.copies.append(Copy(group.devices[src], group.devices[dst],
+                                     nbytes, link, kind, count))
+        outs = [(r, trace.empty(shape, dt, group.devices[r]))
+                for r, shape, dt in rec["shapes"]]
+        for r in group.live:
+            d = group.devices[r]
+            trace.peak[d] = max(trace.peak.get(d, 0), trace.live.get(d, 0))
         n = len(rec["keys"])
-        return outs[0], dict(zip(rec["keys"], outs[1:1 + n])), outs[1 + n:]
+        loss = outs[0][1]
+        metrics = dict(zip(rec["keys"], [t for _, t in outs[1:1 + n]]))
+        rest = iter(outs[1 + n:])
+        grads = []
+        while True:
+            g = [None] * group.n
+            try:
+                for r in group.live:
+                    g[r] = next(rest)[1]
+            except StopIteration:
+                break
+            grads.append(g)
+        return loss, metrics, grads
+
+
+def _live_ranks(mesh, replay: bool):
+    """The model ranks a cell traces: all, or with ``replay`` ranks 0
+    and 1 where the group has more, the others phantoms
+    (``collectives.ModelGroup``) whose numbers :func:`_fill_phantoms`
+    copies from rank 1's."""
+    n = mesh.shape.get("model", 1)
+    return None if not replay or n <= 2 else (0, 1)
 
 
 def _build_cell(cfg, kind, seq, batch, mesh, dp, trace, replay=True):
     """The port's program of one cell on ``mesh``'s placeholders:
     ``(fn, args, devices, info)``.  ``args`` are fake tensors made under
     ``trace.binding()``; ``fn()`` runs the program on them; ``devices``
-    are the ranks' placeholders.
+    are the ranks' placeholders (data rank major, model rank minor).
 
+    The parameters (and in training AdamW's moments) are laid out as
+    the reference's ``shardings(param_specs)`` places them
+    (``dist.sharding.place_state``): each position holds its pieces.
     train: ``make_hier_train_step(cfg, AdamW(), mesh, dp_axes=dp)``, one
-    step; rank 0 holds the parameters, AdamW's state and the batch.
-    With ``replay`` only ranks 0 and 1 run their loss and backward under
-    the trace and the others replay rank 1's (:class:`_RankSteps`).
-    prefill / decode: one data-parallel replica's ``prefill`` /
-    ``decode_step`` on rank 0's device, with ``batch / n_dp`` rows, or
-    the whole batch where the reference's batch spec would replicate it
-    (``batch % n_dp != 0``); decode at position ``seq - 1``.
+    step, every data rank's model group splitting its work over
+    ``"model"``; rank 0 holds the batch.  With ``replay`` only data
+    ranks 0 and 1 run their loss and backward under the trace and the
+    others replay rank 1's (:class:`_RankSteps`), and only model ranks 0
+    and 1 compute (:func:`_live_ranks`).
+    prefill / decode: the first data rank's model group serves
+    ``prefill`` / ``decode_step`` with ``batch / n_dp`` rows, or the
+    whole batch where the reference's batch spec would replicate it
+    (``batch % n_dp != 0``), from rank 0; decode at position ``seq - 1``,
+    each rank holding its piece of the cache
+    (``transformer.init_cache_group``).
     """
+    from ..dist.collectives import ModelGroup
+    from ..dist.sharding import place_state
     from ..models.layers import Unseeded
-    from ..models.lm import decode_step, make_hier_train_step, prefill
-    from ..models.transformer import init_cache, init_params
+    from ..models.lm import (
+        _groups, decode_step, make_hier_train_step, prefill,
+    )
+    from ..models.transformer import init_cache_group, init_params
     from ..opt import AdamW
 
     ndp = int(np.prod([mesh.shape[a] for a in dp])) if dp else 1
@@ -400,43 +465,62 @@ def _build_cell(cfg, kind, seq, batch, mesh, dp, trace, replay=True):
     home = placeholder(mesh.devices[(0,) * mesh.devices.ndim])
     rows = batch // ndp if split else batch  # a rank's, or a replica's
     adt = torch.bfloat16
+    live = _live_ranks(mesh, replay)
+    names = mesh.axis_names
+    k = names.index("model") if "model" in names else None
+    positions = None if live is None else {
+        idx for idx in np.ndindex(mesh.devices.shape) if idx[k] in live}
+    serve_dp = tuple(a for a in names if a != "model")
 
     def tokens_or_embeds(n, t):
         if cfg.embed_inputs:
             return torch.empty((n, t), dtype=torch.int32, device=home)
         return torch.empty((n, t, cfg.d_model), dtype=adt, device=home)
 
-    info = {"rows": rows, "n_dp": ndp}
+    info = {"rows": rows, "n_dp": ndp, "live": live}
     with trace.binding():
         params = init_params(cfg, Unseeded(home))
         if kind == "train":
             opt = AdamW()
-            opt_state = opt.init(params)
+            pp, po = place_state(params, opt.init(params), mesh,
+                                 positions=positions)
+            del params
             data = {"inputs": tokens_or_embeds(batch, seq),
                     "labels": torch.empty((batch, seq), dtype=torch.int32,
                                           device=home)}
             rank_step = _RankSteps(trace, 2 if replay else None)
             step = make_hier_train_step(cfg, opt, mesh, dp_axes=dp,
-                                        rank_step=rank_step)
-            args = (params, opt_state, data)
-            devices = [placeholder(d) for d in step.topology.rank_devices()]
+                                        rank_step=rank_step, live=live)
+            args = (pp, po, data)
+            devices = [placeholder(d) for _, g in _groups(mesh, dp)
+                       for d in g.devices]
             info.update(program="make_hier_train_step(AdamW())",
                         rank_steps=rank_step)
             return (lambda: step(*args)), args, devices, info
+        group = ModelGroup(_groups(mesh, serve_dp)[0][1].devices, live)
+        first = {i for i in np.ndindex(mesh.devices.shape)
+                 if all(c == 0 for j, c in enumerate(i) if j != k)}
+        pp, _ = place_state(params, None, mesh, positions=first
+                            if positions is None else first & positions)
+        del params
+        devices = [placeholder(d) for d in group.devices]
         if kind == "prefill":
             inputs = tokens_or_embeds(rows, seq)
-            args = (params, inputs)
+            args = (pp, inputs)
             info["program"] = "prefill"
-            return (lambda: prefill(params, cfg, inputs)), args, [home], info
-        cache = init_cache(cfg, rows, home)
-        for c in cache:
-            if "pos" in c:
-                c["pos"] = seq - 1
+            return ((lambda: prefill(pp, cfg, inputs, group=group)), args,
+                    devices, info)
+        cache = init_cache_group(cfg, rows, group)
+        for rank in cache:
+            for c in rank or ():
+                if "pos" in c:
+                    c["pos"] = seq - 1
         token = tokens_or_embeds(rows, 1)
-        args = (params, cache, token)
+        args = (pp, cache, token)
         info["program"] = "decode_step"
-        return ((lambda: decode_step(params, cfg, cache, token, seq - 1)),
-                args, [home], info)
+        return ((lambda: decode_step(pp, cfg, cache, token, seq - 1,
+                                     group=group)),
+                args, devices, info)
 
 
 def _trace_cell(cfg, kind, seq, batch, mesh, dp, replay=True):
@@ -444,7 +528,7 @@ def _trace_cell(cfg, kind, seq, batch, mesh, dp, replay=True):
     parts)``; ``parts`` splits each device's peak into the ranks' loss
     and backward (``"inside"``) and the rest of the step
     (``"outside"``), for :func:`_extrapolate`."""
-    from ..core.lowering import FakeTrace, Lowered
+    from ..core.lowering import FakeTrace, Lowered, tally
 
     trace = FakeTrace.for_mesh(mesh)
     t0 = time.perf_counter()
@@ -456,20 +540,85 @@ def _trace_cell(cfg, kind, seq, batch, mesh, dp, replay=True):
         outputs = _per_device(trace, _tensors(out))
         parts = {"outside": dict(trace.peak), "inside": {}}
         flops, nbytes = dict(trace.flops), dict(trace.bytes_accessed)
-        copies = list(trace.copies)
+        copies = tally(trace.copies)
     del out
     secs = time.perf_counter() - t0
     on = _per_device(trace, bound)
-    argument = [on.get(d, 0) if i == devices.index(d) else 0
-                for i, d in enumerate(devices)]
     rs = info.pop("rank_steps", None)
     if rs is not None:
         parts["inside"] = dict(rs.inside)
         info["ranks_traced"] = rs.calls - rs.replayed
         info["ranks_replayed"] = rs.replayed
+    live = info.pop("live")
+    if live is not None:
+        copies = _fill_phantoms(mesh, live, devices, copies, on, outputs,
+                                flops, nbytes, parts["outside"],
+                                parts["inside"])
+    argument = [on.get(d, 0) if i == devices.index(d) else 0
+                for i, d in enumerate(devices)]
     return Lowered(devices=devices, argument=argument, bound=on, input={},
                    output=outputs, peak=_merge_peaks(parts), copies=copies,
                    flops=flops, bytes_accessed=nbytes), secs, info, parts
+
+
+_GROUP_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
+
+
+def _fill_phantoms(mesh, live, devices, copies, *per_device):
+    """Give each phantom model rank (one not in ``live``, which holds
+    ranks 0 and 1) of ``devices`` the numbers of model rank 1 of its
+    group: each ``per_device`` dict (bound, output, FLOPs, bytes, the
+    parts of the peak) takes rank 1's entry.  The copies with a phantom
+    at either end are made anew: between two ranks of one group, a
+    tensor-parallel collective's (``_GROUP_KINDS``), those that rank 0
+    sent rank 1, moved onto the pair (the collectives treat every pair
+    of ranks alike); every other copy with an end at rank 1 (the data
+    ranks' ladder, the batch's scatter, the factors and norms sent to
+    rank 0) once more with rank 1 and the phantom swapped.  Returns the
+    copies, merged (``core.lowering.tally``)."""
+    from ..core.lowering import Copy, tally
+
+    names = mesh.axis_names
+    k = names.index("model")
+    at = {placeholder(mesh.devices[i]): i
+          for i in np.ndindex(mesh.devices.shape)}
+    dev = {i: d for d, i in at.items()}
+
+    def to(d, r):
+        i = list(at[d])
+        i[k] = r
+        return dev[tuple(i)]
+
+    def inside(c):
+        a, b = list(at[c.src]), list(at[c.dst])
+        a[k] = b[k] = 0
+        return a == b and c.kind in _GROUP_KINDS
+
+    phantoms = [d for d in devices if at[d][k] not in live]
+    for d in phantoms:
+        src = to(d, 1)
+        for table in per_device:
+            if src in table:
+                table[d] = table[src]
+    ranks = range(mesh.shape["model"])
+    out = tally(c for c in copies
+                if at[c.src][k] in live and at[c.dst][k] in live)
+    pair = [c for c in out if inside(c) and at[c.src][k] == 0
+            and at[c.dst][k] == 1]
+    for c in pair:
+        for i in ranks:
+            for j in ranks:
+                if i != j and not (i in live and j in live):
+                    out.append(Copy(to(c.src, i), to(c.dst, j), c.nbytes,
+                                    c.link, c.kind, c.count))
+    ones = [c for c in out if not inside(c)
+            and 1 in (at[c.src][k], at[c.dst][k])]
+    for p in ranks:
+        if p not in live:
+            out += [Copy(*(to(e, p) if at[e][k] == 1 else e
+                           for e in (c.src, c.dst)), c.nbytes, c.link,
+                         c.kind, c.count) for c in ones]
+    return out
 
 
 def _merge_peaks(parts) -> dict:
@@ -481,10 +630,22 @@ def _merge_peaks(parts) -> dict:
 
 def _tensors(tree) -> list:
     """The tensors among ``tree``'s leaves (``opt.tree``: dicts, lists,
-    modules; a cache's ``pos`` is an int)."""
+    modules; a cache's ``pos`` is an int), and the pieces of the laid-out
+    ones (``dist.sharding.Placed`` and ``PlacedTree``)."""
+    from ..dist.sharding import Placed, PlacedTree
     from ..opt.tree import leaves
 
-    return [t for t in leaves(tree) if isinstance(t, torch.Tensor)]
+    out = []
+    for t in leaves(tree):
+        if isinstance(t, PlacedTree):
+            t = list(t.leaves)
+        if isinstance(t, Placed):
+            t = [t]
+        if isinstance(t, list):
+            out += [p for pl in t for p in pl.pieces.flat if p is not None]
+        elif isinstance(t, torch.Tensor):
+            out.append(t)
+    return out
 
 
 def _per_device(trace, tensors) -> dict:
@@ -536,7 +697,8 @@ def _extrapolate(runs, ts, t: int):
             raise ValueError("the traces copied differently")
         copies.append(Copy(ca.src, ca.dst,
                            fit(ca.nbytes, cb.nbytes, cc.nbytes),
-                           ca.link, ca.kind))
+                           ca.link, ca.kind,
+                           fit(ca.count, cb.count, cc.count)))
     parts = {key: per(pa[key], pb[key], pc[key])
              for key in ("outside", "inside")}
     return Lowered(

@@ -12,9 +12,11 @@ gradient sync (the paper's technique, ``models.lm.make_hier_train_step``).
 ``--device`` is ``cuda`` by default, which raises without a card; ``cpu``
 runs the same code on the host.  The mesh is ``(pod=1, data=1,
 model=n)`` over the device's visible cards (one position on the CPU),
-as the reference's ``make_cpu_mesh`` builds it; the port has no tensor
-parallelism, so the parameters stay whole on the first position and
-``param_specs`` only reports how the ``model`` axis would split them.
+as the reference's ``make_cpu_mesh`` builds it, and the state is laid
+out on it by ``param_specs`` (``dist.sharding.place_state``): each
+position holds its pieces of the parameters and of AdamW's moments, and
+the step splits its work over ``model`` (tensor parallelism).  A
+checkpoint holds whole tensors and is laid out again on restore.
 Weights come from ``models.transformer.init_params`` with a generator
 seeded by ``--seed``: the reference draws its own with ``jax.random``,
 so the two CLIs train different numbers of the same distributions.
@@ -24,6 +26,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from ..ckpt.checkpoint import CheckpointManager
@@ -31,7 +34,7 @@ from ..configs import get_config
 from ..core.recon import resolve_device
 from ..data.tokens import TokenStream
 from ..dist.fault import StragglerMonitor, suggest_checkpoint_period
-from ..dist.sharding import param_specs, spec_leaves
+from ..dist.sharding import PlacedTree, place_state
 from ..models.lm import make_hier_train_step, make_train_step
 from ..models.transformer import init_params
 from ..opt.adam import AdamW
@@ -54,7 +57,12 @@ def make_device_mesh(device: torch.device):
 
 def state_tree(params, opt_state, step: int) -> dict:
     """The training state as a checkpoint tree of dicts and lists (the
-    parameters and moments in ``opt.tree.leaves`` order)."""
+    parameters and moments in ``opt.tree.leaves`` order); a laid-out
+    state (``dist.sharding.PlacedTree``) is joined first
+    (``Placed.full``), so the checkpoint holds whole tensors."""
+    if isinstance(params, PlacedTree):
+        params = params.full()
+        opt_state = {k: v.full() for k, v in opt_state.items()}
     return {"params": leaves(params),
             "opt": {"m": leaves(opt_state["m"]), "v": leaves(opt_state["v"]),
                     "count": opt_state["count"]},
@@ -63,7 +71,15 @@ def state_tree(params, opt_state, step: int) -> dict:
 
 def load_state(tree, params, opt_state):
     """``(params, opt_state, step)`` from a :func:`state_tree` (restored
-    as tensors), in the structures of ``params`` and ``opt_state``."""
+    as tensors), in the structures of ``params`` and ``opt_state``.
+    Where ``params`` is laid out on a mesh, the restored state is laid
+    out on that mesh (``dist.sharding.place_state``), whatever the
+    ``model`` size of the mesh it was saved from."""
+    if isinstance(params, PlacedTree):
+        whole = {k: v.full() for k, v in opt_state.items()}
+        p, o, step = load_state(tree, params.full(), whole)
+        p, o = place_state(p, o, params.mesh)
+        return p, o, step
     new = unflatten(params, tree["params"])
     opt = {"m": unflatten(opt_state["m"], tree["opt"]["m"]),
            "v": unflatten(opt_state["v"], tree["opt"]["v"]),
@@ -97,7 +113,7 @@ def main(argv=None):
     def init_all():
         params = init_params(
             cfg, torch.Generator(device).manual_seed(args.seed))
-        return params, opt.init(params)
+        return place_state(params, opt.init(params), mesh)
 
     params, opt_state = init_all()
     start_step = 0
@@ -110,17 +126,21 @@ def main(argv=None):
             params, opt_state, _ = load_state(tree, params, opt_state)
             print(f"resumed from step {start_step}")
 
-    specs = [s for s in spec_leaves(param_specs(params, mesh)) if s]
-    print(f"mesh {dict(mesh.shape)}: {len(specs)} of "
-          f"{len(leaves(params))} parameter leaves would split over "
-          "'model' (replicated here: no tensor parallelism)")
+    split = sum(1 for pl in params.leaves if pl.model_dim() is not None)
+    print(f"mesh {dict(mesh.shape)}: {split} of {len(params.leaves)} "
+          "parameter leaves split over 'model'; bytes per position "
+          "(parameters, m, v): " + ", ".join(
+              f"{idx}: {params.bytes_at(idx)}, "
+              f"{opt_state['m'].bytes_at(idx)}, "
+              f"{opt_state['v'].bytes_at(idx)}"
+              for idx in np.ndindex(mesh.devices.shape)))
 
     if args.grad_comm == "hier":
         step_fn = make_hier_train_step(cfg, opt, mesh)
         print(step_fn.topology.describe())
         print(step_fn.plan.describe())
     else:
-        step_fn = make_train_step(cfg, opt)
+        step_fn = make_train_step(cfg, opt, mesh)
 
     stream = TokenStream(
         vocab_size=cfg.vocab_size, seq_len=args.seq,

@@ -22,13 +22,16 @@ returns it; the cache's ``pos`` (the next write position) is a host int.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 from torch import nn
 
 __all__ = [
-    "act_fn", "apply_rope", "attn_apply", "attn_init", "dense_init",
+    "act_fn", "apply_rope", "attn_apply", "attn_apply_group", "attn_init",
+    "attn_split", "dense_init", "embed_group", "mlp_apply_group",
+    "norm_apply_group", "unembed_group",
     "dot", "gelu", "mlp_apply", "mlp_init", "norm_apply", "norm_init",
     "rope_freqs", "sigmoid", "silu", "sinusoidal_embedding", "softplus",
     "Unseeded",
@@ -289,6 +292,46 @@ def _attend(qh, k, v, valid, scale):
     return torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
 
 
+def _proj(p, x, name: str, n: int, cfg, positions):
+    """Attention's ``q``, ``k`` or ``v`` of ``n`` heads: the product,
+    the bias, and for ``q`` / ``k`` the qk-norm and the rotary
+    embedding; [B, T, n, hd]."""
+    b, t, _ = x.shape
+    y = dot(x, p["w" + name])
+    if cfg.qkv_bias:
+        y = y + p["b" + name].to(x.dtype)
+    y = y.reshape(b, t, n, cfg.head_dim)
+    if name == "v":
+        return y
+    if cfg.qk_norm:
+        y = norm_apply({"scale": p[name + "_norm_scale"]}, y, cfg.norm_eps)
+    if cfg.rope == "rope":
+        y = apply_rope(y, positions)
+    elif cfg.rope == "mrope":
+        mpos = positions[None].expand((3,) + tuple(positions.shape))
+        y = apply_rope(y, mpos, sections=cfg.mrope_sections)
+    return y
+
+
+def _prefill_cache(k, v, cfg, window: int):
+    """The cache a prefill of ``k`` / ``v`` [B, T, KV, hd] leaves."""
+    b, t, kv, hd = k.shape
+    c = window if window > 0 else cfg.max_cache
+    cdt = cfg.cache_dtype
+    if window > 0 and t >= c:
+        # ring layout: slot = pos % c; roll so that the slot of
+        # the next token (pos = t) holds the oldest entry
+        shift = t % c
+        ck = torch.roll(k[:, t - c:].to(cdt), shift, dims=1)
+        cv = torch.roll(v[:, t - c:].to(cdt), shift, dims=1)
+    else:
+        ck = k.new_zeros((b, c, kv, hd), dtype=cdt)
+        cv = v.new_zeros((b, c, kv, hd), dtype=cdt)
+        ck[:, :t] = k.to(cdt)
+        cv[:, :t] = v.to(cdt)
+    return {"k": ck, "v": cv, "pos": t}
+
+
 def attn_apply(p, x, *, cfg, positions, cache=None, mode="train",
                window: int = 0):
     """Returns (y, new_cache).
@@ -301,26 +344,9 @@ def attn_apply(p, x, *, cfg, positions, cache=None, mode="train",
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     adt = x.dtype
 
-    q = dot(x, p["wq"])
-    k = dot(x, p["wk"])
-    v = dot(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(adt)
-        k = k + p["bk"].to(adt)
-        v = v + p["bv"].to(adt)
-    q = q.reshape(b, t, h, hd)
-    k = k.reshape(b, t, kv, hd)
-    v = v.reshape(b, t, kv, hd)
-    if cfg.qk_norm:
-        q = norm_apply({"scale": p["q_norm_scale"]}, q, cfg.norm_eps)
-        k = norm_apply({"scale": p["k_norm_scale"]}, k, cfg.norm_eps)
-    if cfg.rope == "rope":
-        q = apply_rope(q, positions)
-        k = apply_rope(k, positions)
-    elif cfg.rope == "mrope":
-        mpos = positions[None].expand((3,) + tuple(positions.shape))
-        q = apply_rope(q, mpos, sections=cfg.mrope_sections)
-        k = apply_rope(k, mpos, sections=cfg.mrope_sections)
+    q = _proj(p, x, "q", h, cfg, positions)
+    k = _proj(p, x, "k", kv, cfg, positions)
+    v = _proj(p, x, "v", kv, cfg, positions)
 
     scale = 1.0 / math.sqrt(hd)
     g = h // kv  # query groups per kv head
@@ -350,22 +376,112 @@ def attn_apply(p, x, *, cfg, positions, cache=None, mode="train",
         o = o.reshape(b, t, h * hd).to(adt)
         new_cache = None
         if mode == "prefill":
-            c = window if window > 0 else cfg.max_cache
-            cdt = cfg.cache_dtype
-            if window > 0 and t >= c:
-                # ring layout: slot = pos % c; roll so that the slot of
-                # the next token (pos = t) holds the oldest entry
-                shift = t % c
-                ck = torch.roll(k[:, t - c:].to(cdt), shift, dims=1)
-                cv = torch.roll(v[:, t - c:].to(cdt), shift, dims=1)
-            else:
-                ck = k.new_zeros((b, c, kv, hd), dtype=cdt)
-                cv = v.new_zeros((b, c, kv, hd), dtype=cdt)
-                ck[:, :t] = k.to(cdt)
-                cv[:, :t] = v.to(cdt)
-            new_cache = {"k": ck, "v": cv, "pos": t}
+            new_cache = _prefill_cache(k, v, cfg, window)
     y = dot(o, p["wo"])
     return y, new_cache
+
+
+def _attn_rows(p, x, *, cfg, positions, rows, mode, window: int = 0):
+    """Attention for the query rows ``rows = (lo, hi)`` of ``x``
+    against every key: ``(y [B, hi - lo, D], cache)``, the cache of the
+    whole sequence in prefill."""
+    b, t, _ = x.shape
+    lo, hi = rows
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    k = _proj(p, x, "k", kv, cfg, positions)
+    v = _proj(p, x, "v", kv, cfg, positions)
+    q = _proj(p, x[:, lo:hi], "q", h, cfg, positions[:, lo:hi])
+    mask = _attn_mask(positions[:, lo:hi], positions, window)
+    o = _attend(q.reshape(b, hi - lo, kv, h // kv, hd), k, v,
+                mask[:, None, None], 1.0 / math.sqrt(hd))
+    o = o.reshape(b, hi - lo, h * hd).to(x.dtype)
+    cache = _prefill_cache(k, v, cfg, window) if mode == "prefill" else None
+    return dot(o, p["wo"]), cache
+
+
+def attn_split(cfg, n: int):
+    """How attention splits over ``n`` model ranks: ``("heads", q, kv)``
+    with each rank's query heads ``q[r]`` and kv heads ``kv[r]`` (a kv
+    head is computed on every rank whose query heads read it), where
+    the query heads divide and each rank's heads keep their groups;
+    else ``("rows", None, None)``: each rank takes ``1 / n`` of the
+    query rows against the whole ``k`` and ``v`` (the reference's
+    ``attn_q_shard``)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if h % n == 0:
+        g, hl = h // kv, h // n
+        qb = [(r * hl, (r + 1) * hl) for r in range(n)]
+        kb = [(q0 // g, -(-q1 // g)) for q0, q1 in qb]
+        if all(k1 - k0 == 1 or (q0 % g == 0 and hl % g == 0)
+               for (q0, _), (k0, k1) in zip(qb, kb)):
+            return "heads", qb, kb
+    return "rows", None, None
+
+
+def attn_apply_group(ps, xs, *, cfg, group, positions, caches=None,
+                     mode="train", window: int = 0):
+    """:func:`attn_apply` over a model group (``dist.collectives
+    .ModelGroup``): ``ps`` maps each parameter to its ``Pieces``, ``xs``
+    and ``positions`` are per-rank lists, ``caches`` a per-rank list of
+    this layer's caches.  Returns ``(ys, caches)``, per rank.
+
+    Split by query heads (:func:`attn_split`): rank ``r`` projects its
+    heads' ``q`` and the ``k`` / ``v`` of the kv heads they read, attends
+    and applies its rows of ``wo``; one all-reduce sums the ranks'
+    partial outputs.  Its cache holds its kv heads.  Where the heads do
+    not divide, split by query rows: each rank projects ``k`` and ``v``
+    for the whole sequence with the whole weights (relaid out at use)
+    and its rows' ``q``, and an all-gather joins the rows; a decode
+    step, or a length the ranks do not divide, is computed whole on
+    every rank.  Such a rank's cache holds every kv head."""
+    n, hd = group.n, cfg.head_dim
+    how, qb, kb = attn_split(cfg, n)
+    caches = [None] * n if caches is None else caches
+    names = sorted(ps)
+    if how == "heads":
+        def cols(b):
+            return [(a * hd, c * hd) for a, c in b]
+        bounds = {"q": cols(qb), "k": cols(kb), "v": cols(kb)}
+        w = {}
+        for k in names:
+            if k in ("wq", "wk", "wv"):
+                w[k] = group.take(ps[k], 1, bounds[k[1]])
+            elif k in ("bq", "bk", "bv"):
+                w[k] = group.take(ps[k], 0, bounds[k[1]])
+            elif k == "wo":
+                w[k] = group.take(ps[k], 0, bounds["q"])
+            else:  # the qk-norm scales
+                w[k] = group.whole(ps[k])
+
+        def one(r, x, pos, c, *ws):
+            lc = dataclasses.replace(
+                cfg, n_heads=qb[r][1] - qb[r][0],
+                n_kv_heads=kb[r][1] - kb[r][0], head_dim_override=hd)
+            return attn_apply(dict(zip(names, ws)), x, cfg=lc,
+                              positions=pos, cache=c, mode=mode,
+                              window=window)
+
+        outs = group.each(one, range(n), xs, positions, caches,
+                          *[w[k] for k in names])
+        ys = group.all_reduce([o and o[0] for o in outs])
+        return ys, [o and o[1] for o in outs]
+    w = [group.whole(ps[k]) for k in names]
+    t = xs[group.live[0]].shape[1]
+    if mode == "decode" or t % n:
+        outs = group.each(
+            lambda x, pos, c, *ws: attn_apply(
+                dict(zip(names, ws)), x, cfg=cfg, positions=pos, cache=c,
+                mode=mode, window=window),
+            xs, positions, caches, *w)
+        return [o and o[0] for o in outs], [o and o[1] for o in outs]
+    rows = group.bounds(t)
+    outs = group.each(
+        lambda rw, x, pos, *ws: _attn_rows(
+            dict(zip(names, ws)), x, cfg=cfg, positions=pos, rows=rw,
+            mode=mode, window=window),
+        rows, xs, positions, *w)
+    ys = group.all_gather([o and o[0] for o in outs], dim=1)
+    return ys, [o and o[1] for o in outs]
 
 
 # --------------------------------------------------------------------- #
@@ -391,3 +507,71 @@ def mlp_apply(p, x, *, cfg):
     else:
         h = act(h)
     return dot(h, p["wo"])
+
+
+def mlp_apply_group(ps, xs, *, cfg, group):
+    """:func:`mlp_apply` over a model group: rank ``r`` takes columns
+    ``r`` of ``wi`` / ``wg`` and the same rows of ``wo``, and one
+    all-reduce sums the partial outputs.  A width the ranks do not
+    divide is computed whole on every rank, with the whole weights."""
+    names = sorted(ps)
+    f = ps["wi"].shape[1]
+    if f % group.n:
+        w = [group.whole(ps[k]) for k in names]
+        return group.each(
+            lambda x, *ws: mlp_apply(dict(zip(names, ws)), x, cfg=cfg),
+            xs, *w)
+    cb = group.bounds(f)
+    w = [group.take(ps[k], 0 if k == "wo" else 1, cb) for k in names]
+    ys = group.each(
+        lambda x, *ws: mlp_apply(dict(zip(names, ws)), x, cfg=cfg), xs, *w)
+    return group.all_reduce(ys)
+
+
+def norm_apply_group(ps, xs, *, group, eps: float = 1e-6):
+    """:func:`norm_apply` on every rank's copy of ``xs``, the scale (and
+    bias) whole (a scanned layer's norm is split at rest)."""
+    names = sorted(ps)
+    w = [group.whole(ps[k]) for k in names]
+    return group.each(
+        lambda x, *ws: norm_apply(dict(zip(names, ws)), x, eps), xs, *w)
+
+
+def embed_group(leaf, ids, *, group, dtype):
+    """Vocab-parallel embedding: rank ``r`` looks up the rows it holds
+    (``embed`` is split over the vocabulary), the other tokens read
+    zero, and an all-reduce in f32 sums the ranks' lookups (exactly: one
+    term of each sum is not zero).  A vocabulary the ranks do not
+    divide is looked up whole on every rank."""
+    v = leaf.shape[0]
+    if v % group.n:
+        return group.each(lambda w, i: w[i].to(dtype), group.whole(leaf),
+                          ids)
+    vb = group.bounds(v)
+
+    def one(w, i, b):
+        lo, hi = b
+        inside = (i >= lo) & (i < hi)
+        rows = w[torch.clamp(i - lo, 0, hi - lo - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+    xs = group.all_reduce(group.each(one, group.take(leaf, 0, vb), ids, vb))
+    return group.each(lambda x: x.to(dtype), xs)
+
+
+def unembed_group(leaf, xs, *, group, tied: bool):
+    """Vocab-parallel logits in f32: rank ``r``'s columns of the
+    unembedding (``embed``'s rows, transposed, when ``tied``).  Returns
+    ``(logits, bounds)``, ``bounds[r]`` rank ``r``'s vocabulary range;
+    where the ranks do not divide the vocabulary every rank computes
+    every logit and ``bounds`` is ``None``."""
+    vdim = 0 if tied else 1
+    v = leaf.shape[vdim]
+
+    def one(x, w):
+        return dot(x, w.T if tied else w).to(torch.float32)
+
+    if v % group.n:
+        return group.each(one, xs, group.whole(leaf)), None
+    vb = group.bounds(v)
+    return group.each(one, xs, group.take(leaf, vdim, vb)), vb

@@ -21,7 +21,7 @@ import torch
 
 from .layers import dense_init, dot, gelu, params, sigmoid, softplus
 
-__all__ = ["C_FACTOR", "rglru_apply", "rglru_init"]
+__all__ = ["C_FACTOR", "rglru_apply", "rglru_apply_group", "rglru_init"]
 
 C_FACTOR = 8.0
 
@@ -106,18 +106,22 @@ def _interleave(even, odd):
     return out
 
 
-def rglru_apply(p, x, *, cfg, cache=None, mode="train"):
-    """Returns (y, new_cache); cache = {"h": [B,R], "conv": [B,W-1,R]}."""
-    adt = x.dtype
-
+def _rglru_in(p, x, cache):
+    """The gate branch and the conv of the input branch, per channel:
+    ``(gate, uf f32, conv_state)``."""
     gate = gelu(dot(x, p["wy"]))
     u = dot(x, p["wx"])
     uf, conv_state = _conv1d(
         u, p["conv"], None if cache is None else cache["conv"], f32_sum=True
     )
-    uf = uf.to(torch.float32)
-    rgate = sigmoid(uf @ p["wa"] + p["ba"])
-    igate = sigmoid(uf @ p["wi"] + p["bi"])
+    return gate, uf.to(torch.float32), conv_state
+
+
+def _rglru_out(p, uf_all, uf, gate, conv_state, cache, mode, adt):
+    """The gates (from every channel, ``uf_all``), the recurrence on
+    this piece's channels (``uf``) and the output projection."""
+    rgate = sigmoid(uf_all @ p["wa"] + p["ba"])
+    igate = sigmoid(uf_all @ p["wi"] + p["bi"])
     a = torch.exp(-C_FACTOR * softplus(p["lam"]) * rgate)  # [B,T,R]
     gated_in = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (
         igate * uf)
@@ -135,3 +139,43 @@ def rglru_apply(p, x, *, cfg, cache=None, mode="train"):
 
     y = dot(out.to(adt) * gate, p["wo"])
     return y, new_cache
+
+
+def rglru_apply(p, x, *, cfg, cache=None, mode="train"):
+    """Returns (y, new_cache); cache = {"h": [B,R], "conv": [B,W-1,R]}."""
+    gate, uf, conv_state = _rglru_in(p, x, cache)
+    return _rglru_out(p, uf, uf, gate, conv_state, cache, mode, x.dtype)
+
+
+def rglru_apply_group(ps, xs, *, cfg, group, caches=None, mode="train"):
+    """:func:`rglru_apply` over a model group, split by channel: rank
+    ``r`` takes channels ``r`` of the branches (columns of ``wx`` /
+    ``wy``), of the conv, of the gates (columns of ``wa`` / ``wi``, their
+    biases, ``lam``) and of the recurrence, and the same rows of ``wo``.
+    The gates read every channel: one all-gather of the conv's output;
+    one all-reduce sums the partial outputs.  Its cache holds its
+    channels.  A width the ranks do not divide is computed whole on
+    every rank, with the whole weights.  Returns ``(ys, caches)``."""
+    names = sorted(ps)
+    caches = [None] * group.n if caches is None else caches
+    r = ps["wx"].shape[1]
+    if r % group.n:
+        w = [group.whole(ps[k]) for k in names]
+        outs = group.each(
+            lambda x, c, *ws: rglru_apply(dict(zip(names, ws)), x, cfg=cfg,
+                                          cache=c, mode=mode),
+            xs, caches, *w)
+        return [o and o[0] for o in outs], [o and o[1] for o in outs]
+    cb = group.bounds(r)
+    dims = {"wo": 0, "ba": 0, "bi": 0, "lam": 0}
+    w = [group.take(ps[k], dims.get(k, 1), cb) for k in names]
+    ins = group.each(
+        lambda x, c, *ws: _rglru_in(dict(zip(names, ws)), x, c),
+        xs, caches, *w)
+    uf_all = group.all_gather([i and i[1] for i in ins], dim=-1)
+    outs = group.each(
+        lambda x, i, ua, c, *ws: _rglru_out(
+            dict(zip(names, ws)), ua, i[1], i[0], i[2], c, mode, x.dtype),
+        xs, ins, uf_all, caches, *w)
+    ys = group.all_reduce([o and o[0] for o in outs])
+    return ys, [o and o[1] for o in outs]

@@ -16,6 +16,7 @@ cache), "decode" (one token, consumes+emits cache).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -23,12 +24,15 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from . import layers as L
-from .moe import moe_apply, moe_init
-from .rglru import rglru_apply, rglru_init
-from .xlstm import mlstm_apply, mlstm_init, slstm_apply, slstm_init
+from .moe import moe_apply, moe_apply_group, moe_init
+from .rglru import rglru_apply, rglru_apply_group, rglru_init
+from .xlstm import (
+    mlstm_apply, mlstm_apply_group, mlstm_init, slstm_apply,
+    slstm_apply_group, slstm_init,
+)
 
-__all__ = ["LMParams", "forward", "init_cache", "init_params",
-           "params_from_reference"]
+__all__ = ["LMParams", "forward", "forward_group", "init_cache",
+           "init_cache_group", "init_params", "params_from_reference"]
 
 
 class LMParams(nn.Module):
@@ -194,6 +198,34 @@ def init_cache(cfg, batch: int, device="cpu") -> list:
             for kind in cfg.pattern_kinds]
 
 
+def _rank_cfg(kind: str, cfg, n: int, r: int):
+    """The config whose one-device cache is rank ``r``'s piece of a
+    layer's cache over ``n`` model ranks (:func:`forward_group`'s
+    split)."""
+    if kind in ("attn", "local"):
+        how, _, kb = L.attn_split(cfg, n)
+        if how == "heads":
+            return dataclasses.replace(cfg, n_kv_heads=kb[r][1] - kb[r][0],
+                                       head_dim_override=cfg.head_dim)
+    elif kind == "rglru":
+        width = cfg.rnn_width or cfg.d_model
+        if width % n == 0:
+            return dataclasses.replace(cfg, rnn_width=width // n)
+    return cfg
+
+
+def init_cache_group(cfg, batch: int, group) -> list:
+    """An empty cache per layer for each rank of a model group
+    (``dist.collectives.ModelGroup``), each rank's the piece its compute
+    splits off: attention's kv heads where it splits by heads,
+    RG-LRU's channels; ``None`` on a phantom rank."""
+    return group.each(
+        lambda r, dev: [_layer_cache(kind, _rank_cfg(kind, cfg, group.n, r),
+                                     batch, dev)
+                        for kind in cfg.pattern_kinds],
+        range(group.n), group.devices)
+
+
 # --------------------------------------------------------------------- #
 # forward
 # --------------------------------------------------------------------- #
@@ -354,3 +386,141 @@ def forward(params: LMParams, cfg, inputs, *, positions, cache=None,
     logits = L.dot(x, w).to(torch.float32)
     out_cache = new_cache if mode in ("prefill", "decode") else None
     return logits, out_cache, aux_total
+
+
+# --------------------------------------------------------------------- #
+# forward over a model group (tensor parallelism)
+# --------------------------------------------------------------------- #
+
+
+def _layer_apply_group(kind, p, xs, *, cfg, group, positions, caches, mode,
+                       xsums=None):
+    """:func:`_layer_apply` over a model group: per-rank lists in and
+    out, ``(xs, caches, auxs, xsums)``."""
+    aux = [0.0] * group.n
+    src = xs if xsums is None else xsums
+    hs = group.each(lambda h, x: h.to(x.dtype),
+                    L.norm_apply_group(p["ln1"], src, group=group,
+                                       eps=cfg.norm_eps), xs)
+    kw = dict(cfg=cfg, group=group, caches=caches, mode=mode)
+    if kind in ("attn", "local", "rglru"):
+        if kind == "rglru":
+            a, c = rglru_apply_group(p["rglru"], hs, **kw)
+        else:
+            a, c = L.attn_apply_group(
+                p["attn"], hs, positions=positions,
+                window=cfg.window if kind == "local" else 0, **kw)
+        names = sorted(p["ln2"])
+        w = [group.whole(p["ln2"][k]) for k in names]
+        both = group.each(
+            lambda x, ai, *ws: _residual_norm(dict(zip(names, ws)), x, ai,
+                                              cfg), xs, a, *w)
+        xs = [b and b[0] for b in both]
+        h2 = [b and b[1] for b in both]
+        if kind != "rglru" and cfg.moe_experts:
+            m, aux = moe_apply_group(p["mix"], h2, cfg=cfg, group=group)
+        else:
+            m = L.mlp_apply_group(p["mix"], h2, cfg=cfg, group=group)
+    elif kind == "mlstm":
+        m, c = mlstm_apply_group(p["mlstm"], hs, **kw)
+    elif kind == "slstm":
+        m, c = slstm_apply_group(p["slstm"], hs, **kw)
+    else:
+        raise ValueError(kind)
+    xsums = group.each(_add32, xs, m)
+    return group.each(lambda s, x: s.to(x.dtype), xsums, xs), c, aux, xsums
+
+
+def forward_group(gp, cfg, inputs, *, group, positions, caches=None,
+                  mode="train", last_token_only: bool = False):
+    """:func:`forward` over a model group (``dist.collectives
+    .ModelGroup``), the reference's GSPMD tensor parallelism over
+    ``model`` in the one-process idiom: every activation is a list of
+    per-rank tensors, each on its rank's device, and each block splits
+    its matrix work over the ranks (``layers.attn_apply_group``,
+    ``mlp_apply_group``, ``moe.moe_apply_group``,
+    ``rglru.rglru_apply_group``; the xLSTM blocks are computed whole on
+    every rank), with the collectives of ``ModelGroup``.  The
+    embedding is vocab-parallel, and so is the unembedding: the logits
+    come back split on the vocabulary.  The residual stream and the
+    norms are computed on every rank's copy, rounded as in
+    :func:`forward`; each full period runs under ``checkpoint`` in
+    training when ``cfg.remat`` asks for it.
+
+    ``gp`` is the group's parameters in ``opt.tree.module_dict`` form,
+    each leaf the ``Pieces`` its ranks hold at rest.  ``inputs`` and
+    ``positions`` are per-rank lists (the same rows on every rank);
+    ``caches`` per rank the list of per-layer caches
+    (:func:`init_cache_group`, or a prefill's).
+
+    Returns ``(logits, bounds, caches, aux)``: per rank the f32 logits
+    [B, T, V / n] of its vocabulary range ``bounds[r]`` (``bounds`` is
+    ``None`` where every rank holds every logit, a vocabulary the ranks
+    do not divide), per rank its caches (``None`` in training), per rank
+    the aux loss.
+    """
+    adt = cfg.activation_dtype
+    n, live = group.n, group.live
+    if cfg.embed_inputs:
+        xs = L.embed_group(gp["embed"], inputs, group=group, dtype=adt)
+    else:
+        xs = group.each(lambda i: i.to(adt), inputs)
+    if cfg.rope == "sinusoidal":
+        xs = group.each(lambda x, pos: x + L.sinusoidal_embedding(
+            pos, cfg.d_model).to(adt), xs, positions)
+
+    aux = group.each(lambda x: torch.zeros((), dtype=torch.float32,
+                                           device=x.device), xs)
+    new_caches = [[] for _ in range(n)]
+    n_per, period = _stack(cfg)
+    layers = list(zip(cfg.pattern_kinds, gp["layers"]))
+    remat = _remat_context(cfg.remat) if mode == "train" else None
+
+    def run(lo, hi, xs, aux, record=True):
+        xsums = None
+        for i in range(lo, hi):
+            kind, p = layers[i]
+            cs = None if caches is None else [c and c[i] for c in caches]
+            xs, c, a, xsums = _layer_apply_group(
+                kind, p, xs, cfg=cfg, group=group, positions=positions,
+                caches=cs, mode=mode, xsums=xsums)
+            aux = group.each(lambda t, ai: t + ai, aux, a)
+            if record:
+                for r in live:
+                    new_caches[r].append(c[r])
+        return xs, aux, xsums
+
+    def unflat(flat):
+        xs, aux = [None] * n, [None] * n
+        k = len(live)
+        for j, r in enumerate(live):
+            xs[r], aux[r] = flat[j], flat[k + j]
+        return xs, aux
+
+    for per in range(n_per):
+        lo = per * period
+        if remat is None:
+            xs, aux, _ = run(lo, lo + period, xs, aux)
+            continue
+
+        def body(*flat, lo=lo):
+            x2, a2, _ = run(lo, lo + period, *unflat(flat), record=False)
+            return tuple(x2[r] for r in live) + tuple(a2[r] for r in live)
+
+        flat = ckpt.checkpoint(
+            body, *[xs[r] for r in live], *[aux[r] for r in live],
+            use_reentrant=False, context_fn=remat, preserve_rng_state=False)
+        xs, aux = unflat(flat)
+    xs, aux, xsums = run(n_per * period, len(layers), xs, aux)
+
+    if xsums is not None:
+        xs = xsums
+    if last_token_only:
+        xs = group.each(lambda x: x[:, -1:], xs)
+    xs = group.each(lambda h: h.to(adt), L.norm_apply_group(
+        gp["final_norm"], xs, group=group, eps=cfg.norm_eps))
+    tied = gp.get("unembed") is None
+    logits, bounds = L.unembed_group(gp["embed"] if tied else gp["unembed"],
+                                     xs, group=group, tied=tied)
+    out_cache = new_caches if mode in ("prefill", "decode") else None
+    return logits, bounds, out_cache, aux

@@ -27,7 +27,8 @@ import torch
 from .layers import dense_init, dot, gelu, params, sigmoid, silu, softplus
 from .rglru import _conv1d
 
-__all__ = ["mlstm_apply", "mlstm_init", "slstm_apply", "slstm_init"]
+__all__ = ["mlstm_apply", "mlstm_init", "slstm_apply", "slstm_apply_group",
+           "mlstm_apply_group", "slstm_init"]
 
 
 # --------------------------------------------------------------------- #
@@ -192,3 +193,32 @@ def slstm_apply(p, x, *, cfg, cache=None, mode="train"):
         c, n, m, hh = state
         new_cache = {"c": c, "n": n, "m": m, "h": hh}
     return y, new_cache
+
+
+def _replicated(apply):
+    def group_apply(ps, xs, *, cfg, group, caches=None, mode="train"):
+        names = sorted(ps)
+        caches = [None] * group.n if caches is None else caches
+        w = [group.whole(ps[k]) for k in names]
+        outs = group.each(
+            lambda x, c, *ws: apply(dict(zip(names, ws)), x, cfg=cfg,
+                                    cache=c, mode=mode),
+            xs, caches, *w)
+        return [o and o[0] for o in outs], [o and o[1] for o in outs]
+    return group_apply
+
+
+mlstm_apply_group = _replicated(mlstm_apply)
+mlstm_apply_group.__name__ = "mlstm_apply_group"
+mlstm_apply_group.__doc__ = """:func:`mlstm_apply` over a model group, computed whole on every
+rank: the weights are gathered (``"all-gather"``) and no rank's work is
+split.  The block's q / k / v projections read the whole conv output
+and its gates every head, so a split by heads would gather the
+activations of each layer; xlstm-350m's 4 heads do not divide a
+16-rank group either.  Every rank's cache is whole."""
+slstm_apply_group = _replicated(slstm_apply)
+slstm_apply_group.__name__ = "slstm_apply_group"
+slstm_apply_group.__doc__ = """:func:`slstm_apply` over a model group, computed whole on every
+rank with gathered weights: the recurrence ``h_{t-1} @ r_in`` mixes
+every channel at every time step, so a split would gather at each
+step.  Every rank's cache is whole."""

@@ -19,6 +19,7 @@ from typing import Any
 
 import torch
 
+from ..placement import copy_kind, empty_on
 from .tree import leaves, tree_map
 
 __all__ = ["AdamW", "sgd_momentum"]
@@ -26,6 +27,16 @@ __all__ = ["AdamW", "sgd_momentum"]
 
 def _f32(x):
     return x.to(torch.float32)
+
+
+def _piece(pl, idx):
+    """``pl``'s piece at ``idx``, or a fake of a piece's shape on that
+    position's device where the position is a phantom (the dry run)."""
+    g = pl.pieces[idx]
+    if g is not None:
+        return g
+    like = next(p for p in pl.pieces.flat if p is not None)
+    return empty_on(like.shape, like.dtype, pl.mesh.devices[idx])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +62,8 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state, params) -> tuple[Any, dict]:
+        if hasattr(params, "leaves") and hasattr(params, "template"):
+            return self._update_placed(grads, state, params)
         count = state["count"] + 1
         gs = leaves(grads)
         if self.grad_clip > 0:
@@ -91,6 +104,67 @@ class AdamW:
         new_params = tree_map(upd, params, new_m, new_v)
         return new_params, {"m": new_m, "v": new_v, "count": count}
 
+    def _update_placed(self, grads, state, params):
+        """:meth:`update` on a laid-out state (``dist.sharding
+        .PlacedTree``s and a ``Placed`` count, ``grads`` laid out as
+        ``params``): the same formula piece by piece, each position
+        updating its own pieces.  The clip's global norm counts each
+        element once, from the pieces that tile each leaf
+        (``Placed.owners``: a piece held whole by several positions
+        counts once), summed leaf by leaf on the first position's device
+        and sent to every other (``"psum"``)."""
+        count = state["count"].map(lambda c: c + 1)
+        scale = {}
+        if self.grad_clip > 0:
+            first = params.leaves[0]
+            devs = {str(p.device): p.device for p in first.pieces.flat
+                    if p is not None}
+            home = next(iter(devs.values()))
+            with copy_kind("psum"):
+                gsq = None
+                for pl in grads.leaves:
+                    s = None
+                    for idx in pl.owners():
+                        t = torch.sum(_f32(_piece(pl, idx)) ** 2).to(home)
+                        s = t if s is None else s + t
+                    gsq = s if gsq is None else gsq + s
+                sc = torch.clamp_max(
+                    self.grad_clip / (torch.sqrt(gsq) + 1e-9), 1.0)
+                scale = {k: sc.to(d) for k, d in devs.items()}
+
+        def at(g):
+            if not scale:
+                return torch.ones((), dtype=torch.float32, device=g.device)
+            return scale[str(g.device)]
+
+        corrs = {}
+
+        def corr(c, b):  # the bias correction, once per count piece
+            key = (id(c), b)
+            if key not in corrs:
+                cf = c.to(torch.float32)
+                corrs[key] = 1.0 - torch.pow(torch.full_like(cf, b), cf)
+            return corrs[key]
+
+        new_m = state["m"].map(
+            lambda m, g: self.b1 * m + (1 - self.b1) * _f32(g) * at(g),
+            grads)
+        new_v = state["v"].map(
+            lambda v, g: self.b2 * v + (1 - self.b2) * (_f32(g) * at(g)) ** 2,
+            grads)
+
+        def upd(p, m, v, c):
+            step = (m / corr(c, self.b1)) / (torch.sqrt(v / corr(c, self.b2))
+                                             + self.eps)
+            if self.weight_decay:
+                step = step + self.weight_decay * _f32(p)
+            return (_f32(p) - self.lr * step).to(p.dtype)
+
+        new_params = type(params)(params.template, tuple(
+            pl.map(upd, new_m.leaves[j], new_v.leaves[j], count)
+            for j, pl in enumerate(params.leaves)))
+        return new_params, {"m": new_m, "v": new_v, "count": count}
+
 
 def sgd_momentum(lr: float = 0.1, mu: float = 0.9):
     """Minimal SGD+momentum (used by tests as a second optimizer)."""
@@ -104,10 +178,16 @@ def sgd_momentum(lr: float = 0.1, mu: float = 0.9):
 
         @torch.no_grad()
         def update(self, grads, state, params):
-            mom = tree_map(lambda b, g: mu * b + _f32(g), state["mom"],
-                           grads)
-            new_p = tree_map(lambda p, b: (_f32(p) - lr * b).to(p.dtype),
-                             params, mom)
-            return new_p, {"mom": mom}
+            def m(b, g):
+                return mu * b + _f32(g)
+
+            def p(x, b):
+                return (_f32(x) - lr * b).to(x.dtype)
+
+            if hasattr(params, "template"):  # laid out: piece by piece
+                mom = state["mom"].map(m, grads)
+                return params.map(p, mom), {"mom": mom}
+            mom = tree_map(m, state["mom"], grads)
+            return tree_map(p, params, mom), {"mom": mom}
 
     return _SGD()

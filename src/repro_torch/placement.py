@@ -28,9 +28,11 @@ import functools
 
 import torch
 
-__all__ = ["FakeDevice", "copy_kind", "current_copy_kind", "placeholder"]
+__all__ = ["FakeDevice", "copy_kind", "current_copy_kind", "empty_on",
+           "move", "placeholder"]
 
 _KIND = contextvars.ContextVar("repro_torch_copy_kind", default="other")
+_TRACES: list = []  # the abstract traces running, innermost last
 
 
 class FakeDevice(str):
@@ -119,3 +121,22 @@ class copy_kind:
 def current_copy_kind() -> str:
     """The innermost :class:`copy_kind` in force (``"other"``: none)."""
     return _KIND.get()
+
+
+def move(t, device):
+    """``t.to(device)``, differentiable.  Under an abstract trace
+    (``core.lowering.FakeTrace``) a copy to a placeholder is the trace's
+    own: recorded under the :class:`copy_kind` in force, its backward
+    moving the gradient back, also where torch's Python-level modes are
+    off (a checkpoint's recompute)."""
+    if _TRACES and isinstance(device, FakeDevice):
+        return _TRACES[-1].move(t, device)
+    return t.to(device)
+
+
+def empty_on(shape, dtype, device):
+    """An uninitialized tensor on ``device`` (on a placeholder under an
+    abstract trace: a fake of that shape there)."""
+    if _TRACES and isinstance(device, FakeDevice):
+        return _TRACES[-1].empty(shape, dtype, device)
+    return torch.empty(tuple(shape), dtype=dtype, device=device)

@@ -1,7 +1,8 @@
 """LM serving and training on the card: the cache invariant of every
 architecture, the sliding window past its wrap, the card against the
 port's CPU path on the same weights (a prefill; a train step), the
-hierarchical gradient sync on a mesh of one card, and the training CLI.
+hierarchical gradient sync on a mesh of one card, the split step and
+prefill over ``model`` on a mesh of one card, and the training CLI.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA
 device is present.  The file imports no JAX, so it runs on the GPU
@@ -158,6 +159,39 @@ def test_cuda_hier_step_on_one_card(cuda):
     assert abs(float(m1["loss"]) - float(m2["loss"])) < 1e-4
     assert max(float((a - b).abs().max())
                for a, b in zip(leaves(p1), leaves(p2))) < 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_cuda_split_step_and_prefill_on_one_card(cuda, name):
+    """Tensor parallelism over a (1, 1, 2) mesh whose two positions share
+    the card (f32): the split step's loss and every gradient leaf within
+    1e-4 of max|g| of the one-device step's, and the split prefill's
+    logits within 1e-5 of max|logit|."""
+    cfg = get_config(name, smoke=True, activation_dtype=torch.float32,
+                     cache_dtype=torch.float32, moe_capacity_factor=8.0,
+                     max_cache=32)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(5))
+    mesh = make_mesh((1, 1, 2), ("pod", "data", "model"),
+                     devices=[cuda] * 2)
+    x = lm_serve.make_prompts(cfg, B, 16, torch.Generator(cuda)
+                              .manual_seed(6))
+    rng = np.random.default_rng(7)
+    batch = {"inputs": x.cpu().numpy(),
+             "labels": rng.integers(0, cfg.vocab_size, (B, 16))}
+    l1, _, g1 = lm._value_and_grad(params, cfg, batch)
+    l2, _, g2 = lm.make_train_step(cfg, AdamW(), mesh).sync(params, batch)
+    assert abs(float(l1) - float(l2)) <= 1e-4 * abs(float(l1))
+    for a, b in zip(g2, g1):
+        assert a.device.type == "cuda"
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    from repro_torch.dist.sharding import place_state
+
+    placed, _ = place_state(params, None, mesh)
+    want, _ = prefill(params, cfg, x)
+    got, _ = prefill(placed, cfg, x)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
 
 
 @pytest.mark.gpu
