@@ -19,6 +19,10 @@ joined, so whatever reads the result (a span's fence, a copy to the
 host) sees every minibatch.  Both orders issue the same operations on
 the same data, so they give the same bits.  On the CPU, and with
 ``overlap=False``, everything is issued on the current stream.
+
+Under ``torch.profiler`` each minibatch's slicing and kernel phase is a
+``solve/spmm`` range, and its reduce phase (opened on the side streams)
+and the final join are ``solve/reduce`` ranges (``obs.trace.range``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import contextlib
 from typing import Callable
 
 import torch
+
+from ..obs.trace import range as obs_range
 
 __all__ = ["pipelined_apply", "side_streams"]
 
@@ -77,25 +83,35 @@ def pipelined_apply(
     y = xs[0].shape[1]
     if y % fuse:
         raise ValueError(f"slice count {y} is not a multiple of fuse={fuse}")
-    minis = ([x[:, i * fuse:(i + 1) * fuse].contiguous() for x in xs]
-             for i in range(y // fuse))
-    if not many:
-        minis = (m[0] for m in minis)
+
+    def kernel_phase(i):
+        with obs_range("solve/spmm"):
+            chunk = [x[:, i * fuse:(i + 1) * fuse].contiguous() for x in xs]
+            return kernel_fn(chunk if many else chunk[0])
+
+    def reduce_phase(band):
+        with obs_range("solve/reduce"):
+            return reduce_fn(band)
+
+    n_mini = y // fuse
     if overlap and streams:
-        outs = _overlapped(kernel_fn, reduce_fn, minis, list(streams))
+        outs = _overlapped(kernel_phase, reduce_phase, n_mini, list(streams))
     else:
-        outs = _in_order(kernel_fn, reduce_fn, minis, overlap)
-    if not many:
-        return torch.cat(outs, dim=1)
-    return [torch.cat([o[p] for o in outs], dim=1) for p in range(len(xs))]
+        outs = _in_order(kernel_phase, reduce_phase, n_mini, overlap)
+    with obs_range("solve/reduce"):
+        if not many:
+            return torch.cat(outs, dim=1)
+        return [torch.cat([o[p] for o in outs], dim=1)
+                for p in range(len(xs))]
 
 
-def _in_order(kernel_fn, reduce_fn, minis, overlap):
-    """The minibatches' outputs, every operation on the current stream."""
+def _in_order(kernel_fn, reduce_fn, n_mini, overlap):
+    """The minibatches' outputs, every operation on the current stream;
+    ``kernel_fn`` takes a minibatch's index."""
     outs = []
     pending = None
-    for x in minis:
-        band = kernel_fn(x)
+    for i in range(n_mini):
+        band = kernel_fn(i)
         if not overlap:
             outs.append(reduce_fn(band))
             continue
@@ -107,9 +123,9 @@ def _in_order(kernel_fn, reduce_fn, minis, overlap):
     return outs
 
 
-def _overlapped(kernel_fn, reduce_fn, minis, streams):
+def _overlapped(kernel_fn, reduce_fn, n_mini, streams):
     """The Fig. 8 order with the reduce phase on ``streams``: the
-    minibatches' outputs."""
+    minibatches' outputs; ``kernel_fn`` takes a minibatch's index."""
     main = {s.device: torch.cuda.current_stream(s.device) for s in streams}
     side = {s.device: s for s in streams}
 
@@ -130,8 +146,8 @@ def _overlapped(kernel_fn, reduce_fn, minis, streams):
 
     outs = []
     pending = None
-    for x in minis:
-        band = kernel_fn(x)
+    for i in range(n_mini):
+        band = kernel_fn(i)
         done = {d: m.record_event() for d, m in main.items()}
         if pending is not None:
             outs.append(reduce_on_side(*pending))

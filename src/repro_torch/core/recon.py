@@ -22,11 +22,15 @@ takes the group's maximum (its ``pmax``).  Only the host joins the
 chunks, once, when a result is downloaded.  Without a topology the
 reconstructor has one rank on ``device``.
 
-The solve is timed by the ``recon/stage`` and ``recon/solve`` spans of
-``obs.trace``; with tracing on, a ``recon/exchange`` instant and the
-``comm_bytes_total`` / ``dma_issues_total`` counters carry its modeled
-traffic.  ``resil.inject``'s ``recon/solve`` site sees the solution
-before the non-finite check.
+A call is timed by the ``recon/stage``, ``recon/x0``, ``recon/solve``,
+``recon/download`` and ``recon/unpack`` spans of ``obs.trace``; under
+``torch.profiler`` the solve's phases are ``solve/spmm``,
+``solve/reduce`` (``core.pipeline``), ``solve/scale``, ``solve/dot`` and
+``solve/update`` (``core.solver``) ranges.  With tracing on, a
+``recon/exchange`` instant and the ``comm_bytes_total`` /
+``dma_issues_total`` counters carry the solve's modeled traffic.
+``resil.inject``'s ``recon/solve`` site sees the solution before the
+non-finite check.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from ..kernels.ops import (
 )
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from ..obs.trace import range as obs_range
 from ..obs.trace import span as obs_span
 from ..resil import inject
 from ..resil.errors import NonFiniteSolveError
@@ -658,16 +663,18 @@ class Reconstructor:
                     # accumulation never under/overflows; one factor per
                     # slice for all ranks (the group's max over its
                     # blocks, as the reference's pmax over its ranks).
-                    s = adaptive_scale_cols(xs, 1.0)
-                    xs = [(x.to(torch.float32) * f).to(pol.storage)
-                          for x, f in zip(xs, s)]
-                    inv = [1.0 / f for f in s]
+                    with obs_range("solve/scale"):
+                        s = adaptive_scale_cols(xs, 1.0)
+                        xs = [(x.to(torch.float32) * f).to(pol.storage)
+                              for x, f in zip(xs, s)]
+                        inv = [1.0 / f for f in s]
                 out = pipelined_apply(
                     kernel, reduce, xs, cfg.fuse, overlap=cfg.overlap,
                     streams=streams,
                 )
                 if inv is not None:
-                    out = [o * i for o, i in zip(out, inv)]
+                    with obs_range("solve/scale"):
+                        out = [o * i for o, i in zip(out, inv)]
                 return Sharded(out, blocks)
 
             return apply
@@ -687,20 +694,22 @@ class Reconstructor:
             # an f32 sum would carry that order into the CG's last bits,
             # which 8 iterations amplify to 1e-2 (a streamed slab against
             # the full volume)
-            partials = []
-            for a, b, r in zip(u.parts, v.parts, u.ranks):
-                prod = a.to(torch.float32) * b.to(torch.float32)
-                if r == 1:
-                    partials.append(torch.sum(prod, dim=0,
-                                              dtype=torch.float64))
-                else:  # one row sum per rank of the block
-                    partials += prod.reshape(r, -1, prod.shape[-1]).sum(
-                        dim=1, dtype=torch.float64).unbind(0)
-            total = partials[0]
-            for t in partials[1:]:
-                total = total + t.to(total.device)
-            total = total.to(torch.float32)
-            return Sharded([total.to(b.device) for b in u.parts], u.ranks)
+            with obs_range("solve/dot"):
+                partials = []
+                for a, b, r in zip(u.parts, v.parts, u.ranks):
+                    prod = a.to(torch.float32) * b.to(torch.float32)
+                    if r == 1:
+                        partials.append(torch.sum(prod, dim=0,
+                                                  dtype=torch.float64))
+                    else:  # one row sum per rank of the block
+                        partials += prod.reshape(r, -1, prod.shape[-1]).sum(
+                            dim=1, dtype=torch.float64).unbind(0)
+                total = partials[0]
+                for t in partials[1:]:
+                    total = total + t.to(total.device)
+                total = total.to(torch.float32)
+                return Sharded([total.to(b.device) for b in u.parts],
+                               u.ranks)
 
         return project, backproject, dot_rows
 
@@ -810,35 +819,36 @@ class Reconstructor:
                 # caching allocator must not hand its memory out again
                 # before this stream is done with it
                 t.record_stream(torch.cuda.current_stream(t.device))
-        scale = staged.scale
-        x0 = (
-            self.pack_tomo(x0_nat) * scale
-            if x0_nat is not None
-            else np.zeros((self.tomo_pad, staged.n_slices), np.float32)
-        )
-        with obs_span(
-            "recon/solve", iters=iters, slices=staged.n_slices
-        ) as sp:
+        scale, slices = staged.scale, staged.n_slices
+        with obs_span("recon/x0", slices=slices):
+            x0 = self._shard(
+                self.pack_tomo(x0_nat) * scale
+                if x0_nat is not None
+                else np.zeros((self.tomo_pad, slices), np.float32)
+            )
+        with obs_span("recon/solve", iters=iters, slices=slices) as sp:
             with torch.no_grad():
-                x, res = self._solve(staged.y, self._shard(x0), iters)
+                x, res = self._solve(staged.y, x0, iters)
             # the span ends when the devices are done
             sp.fence((x.parts, res.parts))
-        self._emit_exchange(iters, staged.n_slices)
-        x_nat = self.unpack_tomo(self._download(x)) / scale
-        # the resilience guard: a blown-up solve (or an injected
-        # nonfinite fault) surfaces as a typed error the caller can
-        # retry or escalate, never as NaNs in the volume
-        x_nat = inject.mutate(
-            "recon/solve", x_nat, ctx={"precision": self.cfg.precision}
-        )
-        if not np.isfinite(x_nat).all():
-            n_bad = int(x_nat.size - np.isfinite(x_nat).sum())
-            raise NonFiniteSolveError(
-                f"solve produced {n_bad} non-finite value(s) over "
-                f"{staged.n_slices} slices "
-                f"(precision={self.cfg.precision})"
+        self._emit_exchange(iters, slices)
+        with obs_span("recon/download", slices=slices):
+            x, res = self._download(x), self._download(res.first_ranks())
+        with obs_span("recon/unpack", slices=slices):
+            x_nat = self.unpack_tomo(x) / scale
+            # the resilience guard: a blown-up solve (or an injected
+            # nonfinite fault) surfaces as a typed error the caller can
+            # retry or escalate, never as NaNs in the volume
+            x_nat = inject.mutate(
+                "recon/solve", x_nat, ctx={"precision": self.cfg.precision}
             )
-        return x_nat, self._download(res.first_ranks()) / scale
+            if not np.isfinite(x_nat).all():
+                n_bad = int(x_nat.size - np.isfinite(x_nat).sum())
+                raise NonFiniteSolveError(
+                    f"solve produced {n_bad} non-finite value(s) over "
+                    f"{slices} slices (precision={self.cfg.precision})"
+                )
+            return x_nat, res / scale
 
     def _solve(self, y: Sharded, x0: Sharded, iters: int):
         """The CG solve of every batch group on ``y`` and ``x0`` ([pad,

@@ -11,12 +11,18 @@ vectors ``core.recon`` shards by rows over the ranks
 Per-slice scalars: slices of the volume are independent least-squares
 problems sharing ``A``; alpha/beta are computed per fused slice (shape
 ``[F]``), which never couples slices.
+
+Under ``torch.profiler`` the casts and vector updates are
+``solve/update`` ranges (``obs.trace.range``); the operator applications
+stay outside them, as they name their own phases.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+from ..obs.trace import range as obs_range
 
 __all__ = ["cgnr"]
 
@@ -60,24 +66,41 @@ def cgnr(
     def co(v):
         return v.to(compute_dtype)
 
-    r = co(y) - co(apply_a(st(x0)))
-    s = co(apply_at(st(r)))
-    gamma = dot_rows(s, s)
-    x, p = st(x0), st(s)
+    # each application's input is cast inside an update range and held
+    # by the name its result takes, so it is freed when the result lands
+    with obs_range("solve/update"):
+        r = st(x0)
+    r = apply_a(r)
+    with obs_range("solve/update"):
+        r = co(y) - co(r)
+        s = st(r)
+    s = apply_at(s)
+    with obs_range("solve/update"):
+        s = co(s)
+        gamma = dot_rows(s, s)
+        x, p = st(x0), st(s)
     resnorms = []
     for _ in range(iters):
-        q = co(apply_a(st(p)))
-        # CG scalars stay f32 (dot_rows reduces wide); cast at the update
-        alpha = (gamma / torch.clamp_min(dot_rows(q, q), eps)).to(
-            compute_dtype
-        )
-        x = co(x) + alpha[None, :] * co(p)
-        r = r - alpha[None, :] * q
-        s = co(apply_at(st(r)))
-        gamma_new = dot_rows(s, s)
-        beta = (gamma_new / torch.clamp_min(gamma, eps)).to(compute_dtype)
-        p = s + beta[None, :] * co(p)
-        resnorms.append(torch.sqrt(dot_rows(r, r)))
-        x, p, gamma = st(x), st(p), gamma_new
-    res = torch.stack(resnorms) if resnorms else gamma[None][:0]
-    return x, res
+        q = apply_a(p)
+        with obs_range("solve/update"):
+            q = co(q)
+            # CG scalars stay f32 (dot_rows reduces wide); cast at the
+            # update
+            alpha = (gamma / torch.clamp_min(dot_rows(q, q), eps)).to(
+                compute_dtype
+            )
+            x = co(x) + alpha[None, :] * co(p)
+            r = r - alpha[None, :] * q
+            s = st(r)
+        s = apply_at(s)
+        with obs_range("solve/update"):
+            s = co(s)
+            gamma_new = dot_rows(s, s)
+            beta = (gamma_new / torch.clamp_min(gamma, eps)).to(
+                compute_dtype
+            )
+            p = s + beta[None, :] * co(p)
+            resnorms.append(torch.sqrt(dot_rows(r, r)))
+            x, p, gamma = st(x), st(p), gamma_new
+    with obs_range("solve/update"):
+        return x, torch.stack(resnorms) if resnorms else gamma[None][:0]

@@ -3,7 +3,9 @@ the reference's ``repro.obs``).
 
 * :mod:`~repro_torch.obs.trace` -- nestable, thread-aware spans on one
   monotonic clock (``with span("recon/solve", iters=30): ...``);
-  ``Span.fence`` waits for the CUDA devices of a tensor.
+  ``Span.fence`` waits for the CUDA devices of a tensor; while
+  ``torch.profiler`` records, spans and the solve's phase ranges
+  (``with range("solve/dot"): ...``) are profiler ranges too.
 * :mod:`~repro_torch.obs.metrics` -- counters / gauges / histograms with
   a Prometheus text exposition.
 * :mod:`~repro_torch.obs.export` -- Chrome trace-event JSON (Perfetto) +
@@ -27,6 +29,7 @@ from .trace import (
     enable,
     get_tracer,
     instant,
+    range,  # not in __all__, which names the reference package's exports
     set_tracer,
     span,
 )

@@ -2,7 +2,8 @@
 
 The port's copy of the reference's ``obs/trace.py``.  The solve's host
 paths -- ``Reconstructor.stage_sino`` (``recon/stage``) and
-``Reconstructor.reconstruct`` (``recon/solve``) -- time themselves through
+``Reconstructor.reconstruct`` (``recon/x0``, ``recon/solve``,
+``recon/download``, ``recon/unpack``) -- time themselves through
 :func:`span` instead of ad-hoc ``time.perf_counter()`` pairs, so one run
 produces one coherent, nestable, thread-aware timeline on one monotonic
 clock.  Design rules, as in the reference:
@@ -23,10 +24,17 @@ clock.  Design rules, as in the reference:
   the CUDA devices of the tensors in ``value``, so work queued on any of
   their streams (the pipeline's side streams included) cannot end a
   span early; CPU tensors and other values need no wait.
+* **One clock with the device trace.**  While ``torch.profiler`` is
+  recording, a span also opens a ``record_function`` range of its name,
+  so the profiler's trace holds the program's spans beside the kernels
+  they launched (whether the tracer records or not).  :func:`range`
+  names the solve's phases for the profiler alone: an enqueue's host
+  time is not its work's time, so those never reach the tracer.  With
+  the profiler off either costs one flag read.
 
 Doctest -- nesting, fake clock, exact math:
 
->>> t = Tracer(enabled=True, clock=iter(range(100)).__next__)
+>>> t = Tracer(enabled=True, clock=iter([0, 1, 2, 3]).__next__)
 >>> with t.span("stream/slab", slab=0):
 ...     with t.span("stream/solve") as sp:
 ...         pass
@@ -37,6 +45,8 @@ Doctest -- nesting, fake clock, exact math:
 """
 from __future__ import annotations
 
+import contextlib
+import sys
 import threading
 
 __all__ = [
@@ -48,6 +58,7 @@ __all__ = [
     "disable",
     "span",
     "instant",
+    "range",
     "reset",
 ]
 
@@ -58,13 +69,21 @@ def _default_clock():
     return time.perf_counter()
 
 
+def _profiling() -> bool:
+    """Whether ``torch.profiler`` is recording (never, before ``torch``
+    is imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
 class Span:
     """One timed region.  Use as a context manager; read ``duration_s``
     after exit.  An exception propagating through the span is recorded
     in its attrs as ``exception=<type name>`` (the failing span names
-    what killed it)."""
+    what killed it).  While the profiler records, the span is also a
+    ``record_function`` range of its name, closed on any exit."""
 
-    __slots__ = ("name", "attrs", "lane", "t0", "t1", "_tracer")
+    __slots__ = ("name", "attrs", "lane", "t0", "t1", "_tracer", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, lane, attrs: dict):
         self._tracer = tracer
@@ -73,6 +92,7 @@ class Span:
         self.attrs = attrs
         self.t0 = None
         self.t1 = None
+        self._range = None
 
     @property
     def duration_s(self):
@@ -104,6 +124,11 @@ class Span:
         return value
 
     def __enter__(self):
+        if _profiling():
+            from torch.autograd.profiler import record_function
+
+            self._range = record_function(self.name)
+            self._range.__enter__()
         self.t0 = self._tracer._clock()
         self._tracer._push(self)
         return self
@@ -113,6 +138,9 @@ class Span:
             self.attrs["exception"] = exc_type.__name__
         self.t1 = self._tracer._clock()
         self._tracer._pop(self)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         return False
 
 
@@ -261,3 +289,18 @@ def span(name: str, *, lane: str | None = None, **attrs) -> Span:
 def instant(name: str, *, lane: str | None = None, **attrs):
     """An instant marker on the process-default tracer."""
     _tracer.instant(name, lane=lane, **attrs)
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def range(name: str):  # noqa: A001 (the builtin is not used in this module)
+    """A ``record_function`` range named ``name`` while ``torch.profiler``
+    records, else one shared no-op context manager (no allocation, no
+    clock read).  Never recorded by the tracer: it names the device work
+    that the code inside enqueues (``with range("solve/dot"): ...``)."""
+    if not _profiling():
+        return _NO_RANGE
+    from torch.autograd.profiler import record_function
+
+    return record_function(name)

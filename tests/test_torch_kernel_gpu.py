@@ -672,6 +672,41 @@ def test_cuda_span_fence_waits_for_the_side_streams(cuda, monkeypatch):
     assert (span["t1"] - span["t0"]) * 1e3 >= 0.98 * device_ms
 
 
+@pytest.mark.gpu
+def test_cuda_profiled_solve_names_its_device_work(cuda, tmp_path):
+    """Under the profiler, 90% or more of a solve's device time outside
+    the SpMM kernels was launched inside a ``solve/*`` or ``recon/*``
+    range (the benchmark's attribution, ``xctbench/ranges.py``), and the
+    reduce phase runs on a stream of its own, the side stream: in
+    ``solve/reduce`` only the join of the minibatches runs on the SpMM's
+    stream."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from xctbench import devtrace, ranges
+
+    plan, sino = _small_plan()
+    rec = Reconstructor(plan, ReconConfig(fuse=2))
+    rec.reconstruct(sino, iters=2)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(devtrace.MARKER):
+            rec.reconstruct(sino, iters=5)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ops = ranges.ops(path)
+    rest = [o for o in ops if not o.spmm]
+    assert rest and sum(o.dur for o in rest if o.owner is not None) >= \
+        0.9 * sum(o.dur for o in rest)
+    spmm_streams = {o.stream for o in ops if o.spmm}
+    reduce = [o for o in ops if o.owner == "solve/reduce"]
+    side = {o.stream for o in reduce} - spmm_streams
+    assert len(side) == 1 and len(spmm_streams) == 1
+    assert all(o.stream in side or "Cat" in o.name for o in reduce)
+    assert sum(o.stream in side for o in reduce) > len(reduce) // 2
+
+
 # p + v * x with p = v = 1 + 2**-23, x = 2**-24 * (1 - 2**-23): the exact
 # sum lies 2**-70 below an f32 midpoint, so rounding the product first,
 # or an f64 sum then f32, takes the wrong neighbour; one fused

@@ -272,6 +272,11 @@ def port_plan(small_system):
     )
 
 
+# the port's spans of one reconstruct call, in order
+STAGING_SPANS = ["recon/stage", "recon/x0", "recon/solve", "recon/download",
+                 "recon/unpack"]
+
+
 def _solve_spans(trace, rec, y):
     old = trace.get_tracer()
     tracer = trace.enable(clock=_fake_clock())
@@ -286,16 +291,20 @@ def _solve_spans(trace, rec, y):
 def test_reconstructor_spans_match_reference(small_system, phantom32,
                                              port_plan):
     """``recon/stage`` and ``recon/solve`` with the reference's attributes
-    and nesting, on the same plan and sinogram."""
+    and nesting, on the same plan and sinogram, and around them the
+    port's spans of the staging layer, every one at depth 0."""
     _, _, plan = small_system
     _, y = phantom32
     rec = Reconstructor(port_plan, ReconConfig(comm_mode="rs", fuse=2),
                         device="cpu")
     jrec = JaxReconstructor(plan, cfg=JaxConfig(comm_mode="rs", fuse=2))
     got = _solve_spans(ttrace, rec, y)
-    assert got == _solve_spans(jtrace, jrec, y)
-    assert [g[0] for g in got] == ["recon/stage", "recon/solve"]
-    assert got[1][1] == {"iters": 2, "slices": 4}
+    ref = _solve_spans(jtrace, jrec, y)
+    assert [g for g in got if g[0] in {r[0] for r in ref}] == ref
+    assert [g[0] for g in got] == STAGING_SPANS
+    assert got[2][1] == {"iters": 2, "slices": 4}
+    assert all(g[2:] == (0, None) for g in got)
+    assert [g[1] for g in got if g[0] != "recon/solve"] == [{"slices": 4}] * 4
 
 
 @pytest.mark.parametrize("precision,fires", [("q8", True), ("single", False)])
@@ -338,6 +347,136 @@ def test_cli_trace_on_cpu(tmp_path, capsys, p_data):
     doc = texport.validate_chrome_trace(json.load(open(out)))
     jexport.validate_chrome_trace(doc)
     names = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
-    assert names == ["recon/stage", "recon/solve"]
+    assert names == STAGING_SPANS
+    assert not [e for e in doc["traceEvents"]
+                if e["name"].startswith("solve/")]
     solve = [e for e in doc["traceEvents"] if e["name"] == "recon/solve"][0]
     assert solve["args"] == {"iters": 3, "slices": 4} and solve["dur"] > 0
+
+
+def _annotations(prof, tmp_path):
+    """``(name, ts, dur)`` of the ``user_annotation`` events of a
+    profile, in the order they start."""
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    return sorted((e["ts"], e["name"], e["dur"])
+                  for e in json.load(open(path))["traceEvents"]
+                  if e.get("cat") == "user_annotation")
+
+
+def _phase_counts(iters, n_mini, narrow):
+    """The ``solve/*`` ranges of one group's CGNR solve: ``iters + 1``
+    applications of each operator, each ``n_mini`` kernel phases,
+    ``n_mini`` reduce phases and the join, renormalized before and
+    after under a narrow policy; ``1 + 3 * iters`` dots; the updates
+    before, in and after the loop."""
+    apps = 2 * (iters + 1)
+    return {"solve/spmm": apps * n_mini, "solve/reduce": apps * (n_mini + 1),
+            "solve/scale": 2 * apps if narrow else 0,
+            "solve/dot": 1 + 3 * iters, "solve/update": 2 * iters + 4}
+
+
+@pytest.mark.parametrize("precision,fuse,overlap", [
+    ("mixed", 2, True), ("single", 4, True), ("mixed", 1, False)])
+def test_profiled_reconstruct_names_its_spans_and_phases(
+        phantom32, port_plan, tmp_path, precision, fuse, overlap):
+    """Under ``torch.profiler`` (the tracer off) each ``recon/*`` span of
+    a call is one ``user_annotation``, and each ``solve/*`` range one per
+    phase the solve runs, inside ``recon/solve``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, y = phantom32
+    rec = Reconstructor(port_plan, ReconConfig(
+        precision=precision, comm_mode="rs", fuse=fuse, overlap=overlap),
+        device="cpu")
+    assert not ttrace.get_tracer().enabled
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rec.reconstruct(y, iters=3)
+    got = _annotations(prof, tmp_path)
+    names = [n for _, n, _ in got]
+    assert [n for n in names if n.startswith("recon/")] == STAGING_SPANS
+    counts = {n: names.count(n) for n in set(names) if n.startswith("solve/")}
+    want = _phase_counts(3, y.shape[1] // fuse, precision == "mixed")
+    assert counts == {n: c for n, c in want.items() if c}
+    ((t0, _, dur),) = [(t, n, d) for t, n, d in got if n == "recon/solve"]
+    assert all(t0 <= t and t + d <= t0 + dur
+               for t, n, d in got if n.startswith("solve/"))
+
+
+def test_ranges_cost_nothing_with_the_profiler_off(
+        phantom32, port_plan, monkeypatch):
+    """With the profiler off ``range`` gives one shared object, and
+    neither it nor a span nor a whole call opens a profiler range."""
+    import torch.autograd.profiler as tprof
+
+    def refuse(name, *args, **kwargs):
+        raise AssertionError(f"record_function({name!r}) with the "
+                             "profiler off")
+
+    monkeypatch.setattr(tprof, "record_function", refuse)
+    first = ttrace.range("solve/spmm")
+    assert first is ttrace.range("solve/dot") is tobs.range("solve/update")
+    with first:
+        pass
+    with ttrace.Tracer(enabled=True).span("recon/x0", slices=4):
+        pass
+    _, y = phantom32
+    rec = Reconstructor(port_plan, ReconConfig(precision="mixed",
+                                               comm_mode="rs", fuse=2),
+                        device="cpu")
+    x, _ = rec.reconstruct(y, iters=2)
+    assert np.isfinite(x).all()
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_tracer_holds_the_staging_spans_and_no_phase(
+        phantom32, port_plan, fault):
+    """With tracer and profiler both on, the tracer records the five
+    spans of a call in order at depth 0, and no ``solve/*`` range; a call
+    that raises (a non-finite volume) closes them all, its error in the
+    last one's attrs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, y = phantom32
+    rec = Reconstructor(port_plan, ReconConfig(precision="q8",
+                                               comm_mode="rs", fuse=2),
+                        device="cpu")
+    plan = tinject.FaultPlan(seed=3).add("recon/solve", "nonfinite",
+                                         attempts=None)
+    old = ttrace.get_tracer()
+    tracer = ttrace.enable(clock=_fake_clock())
+    try:
+        with profile(activities=[ProfilerActivity.CPU]), \
+                tinject.activate(plan if fault else tinject.FaultPlan()):
+            if fault:
+                with pytest.raises(terrors.NonFiniteSolveError):
+                    rec.reconstruct(y, iters=2)
+            else:
+                rec.reconstruct(y, iters=2)
+    finally:
+        ttrace.set_tracer(old)
+    spans = tracer.spans()
+    assert [e["name"] for e in spans] == STAGING_SPANS
+    assert [(e["depth"], e["parent"]) for e in spans] == [(0, None)] * 5
+    assert not [e for e in tracer.events if e["name"].startswith("solve/")]
+    assert [e["attrs"].get("exception") for e in spans] == \
+        [None] * 4 + (["NonFiniteSolveError"] if fault else [None])
+
+
+def test_span_that_raises_closes_its_profiler_range(tmp_path):
+    """An exception through a span closes its profiler range where the
+    span ends, and the span keeps the error's name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    t = ttrace.Tracer(enabled=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with pytest.raises(ValueError):
+            with t.span("recon/unpack", slices=4):
+                torch.ones(3).add_(1)
+                raise ValueError("boom")
+        with record_function("after"):
+            torch.ones(3).mul_(2)
+    (unpack, after) = _annotations(prof, tmp_path)
+    assert (unpack[1], after[1]) == ("recon/unpack", "after")
+    assert unpack[0] + unpack[2] <= after[0]
+    assert t.spans()[0]["attrs"] == {"slices": 4, "exception": "ValueError"}
