@@ -22,19 +22,38 @@ takes the group's maximum (its ``pmax``).  Only the host joins the
 chunks, once, when a result is downloaded.  Without a topology the
 reconstructor has one rank on ``device``.
 
-A call is timed by the ``recon/stage``, ``recon/x0``, ``recon/solve``,
-``recon/download`` and ``recon/unpack`` spans of ``obs.trace``; under
+Staging runs on the device.  Slabs cross the host-device link in
+natural order through host buffers kept across calls (pinned on a card;
+while tracing, the ``staging_pinned_alloc_total`` /
+``staging_pinned_reuse_total`` counters of ``obs.metrics``,
+``dir="up"|"down"``, count them), and the
+Hilbert-order permutations, the per-slice power-of-two normalization and
+its inverse, the zero iterate and the finiteness count run on the
+device, through index tables bound beside the operator arrays.  Only the
+per-slice maxima come to the host, where the scale is computed, and the
+volume is copied from the buffer into a fresh array the caller owns.
+Where a batch group's ranks span several devices, the host packs and
+unpacks instead.
+
+A call is timed by the spans of ``obs.trace``, in order: ``recon/stage``
+(sinogram in to normalized on the device), ``recon/x0`` (the initial
+iterate), ``recon/solve`` (fenced), ``recon/unpack`` (the volume's
+gather into natural order, the division by the scale and the
+finiteness count) and ``recon/download`` (the volume to the host).  On
+the host path the download comes before the unpack.  Under
 ``torch.profiler`` the solve's phases are ``solve/spmm``,
 ``solve/reduce`` (``core.pipeline``), ``solve/scale``, ``solve/dot`` and
 ``solve/update`` (``core.solver``) ranges.  With tracing on, a
 ``recon/exchange`` instant and the ``comm_bytes_total`` /
 ``dma_issues_total`` counters carry the solve's modeled traffic.
-``resil.inject``'s ``recon/solve`` site sees the solution before the
-non-finite check.
+``resil.inject``'s ``recon/solve`` site sees the host volume before the
+non-finite check (a volume it changes is tested again on the host).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import warnings
 
 import numpy as np
@@ -123,6 +142,80 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class _HostBuffers:
+    """f32 host staging buffers kept across calls, one per ``(direction,
+    shape, device)``, pinned where the device is a card.  :meth:`take`
+    lends one under its own lock, so two stagings never share a buffer.
+    While tracing is on (as for the exchange's counters), each take bumps
+    ``staging_pinned_alloc_total`` or ``staging_pinned_reuse_total``."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._bufs: dict = {}
+
+    @contextlib.contextmanager
+    def take(self, direction: str, shape: tuple, device: torch.device):
+        key = (direction, tuple(shape), device)
+        with self._lock:
+            got = self._bufs.get(key)
+            if got is None:
+                got = self._bufs[key] = (
+                    torch.empty(shape, dtype=torch.float32,
+                                pin_memory=device.type == "cuda"),
+                    threading.Lock())
+                counter = "staging_pinned_alloc_total"
+            else:
+                counter = "staging_pinned_reuse_total"
+        if obs_trace.get_tracer().enabled:
+            obs_metrics.inc(counter, dir=direction)
+        buf, lock = got
+        with lock:
+            yield buf
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A host array as a tensor over the same memory where torch can
+    read it (no negative strides, native byte order), else a copy."""
+    a = np.asarray(a)
+    if any(s < 0 for s in a.strides) or not a.dtype.isnative:
+        a = np.ascontiguousarray(a, a.dtype.newbyteorder("="))
+    return torch.from_numpy(a)
+
+
+def _pow2_scale(m: np.ndarray) -> np.ndarray:
+    """Per-slice power-of-two normalization from the slices' abs-max
+    (target 1.0: keeps every CG vector, and the fp16 CG scalars, O(n * K)
+    at most, inside half range for any practical geometry)."""
+    return np.exp2(np.round(np.log2(1.0 / np.maximum(m, 1e-30)))).astype(
+        np.float32)
+
+
+def _take_rows(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``t[index]`` along the rows.  Rows narrower than 256 bytes are
+    gathered element by element: on an H100 ``index_select`` costs about
+    0.6 ns a row whatever its width up to 512 bytes, the elementwise
+    gather about 0.013 ns an element."""
+    if t.shape[1] * t.element_size() < 256:
+        return torch.take_along_dim(t, index[:, None], dim=0)
+    return t.index_select(0, index)
+
+
+def _gather_rows(pad: int, n: int, perm, pos) -> np.ndarray:
+    """``[pad]`` int64: the natural row each stored row reads, ``n`` (a
+    zero row) for padding -- the gather form of ``pack_sino`` /
+    ``pack_tomo``'s scatter."""
+    src = np.full(pad, n, np.int64)
+    src[slice(None, n) if pos is None else pos[:n]] = perm
+    return src
+
+
+def _inverse_rows(n: int, perm, pos) -> np.ndarray:
+    """``[n]`` int64: the stored row of each natural row (``unpack_*``)."""
+    rank = np.empty(n, np.int64)
+    rank[perm] = np.arange(n) if pos is None else pos[:n]
+    return rank
+
+
 @dataclasses.dataclass(frozen=True)
 class StagedSlab:
     """A sinogram slab already packed, normalized and on the device.
@@ -136,6 +229,9 @@ class StagedSlab:
     #   device (``.cpu()`` joins them on the host)
     scale: np.ndarray  # [Y] power-of-two per-slice normalization
     n_slices: int
+    # ``scale`` on the devices: each block of ``y``'s columns of it (the
+    # device staging path; None where the host packs)
+    scale_dev: Sharded | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +378,19 @@ class Reconstructor:
         self._stage_stream = (
             torch.cuda.Stream(self.device)
             if not abstract and self.device.type == "cuda" else None)
+        # the device staging path: (device, first group, end group) of
+        # each column set, every group on one device and groups sharing
+        # a device in one set; None (the host path) where a group's ranks
+        # span several devices
+        sets = None
+        if not abstract and all(len(set(g)) == 1 for g in self.groups):
+            on = [g[0] for g in self.groups]
+            sets = ([(on[0], 0, self.n_batch)] if len(set(on)) == 1
+                    else [(d, g, g + 1) for g, d in enumerate(on)])
+        self._sets = sets
+        self._buffers = _HostBuffers()
+        self._stage_idx = {} if sets is None else self._stage_tables(
+            dict.fromkeys(d for d, _, _ in sets))
 
     # ------------------------------------------------------------------ #
     # data movement helpers (host side)
@@ -305,15 +414,9 @@ class Reconstructor:
         return out
 
     def unpack_tomo(self, x_curve):
-        g = self.plan.geo
         if self._rank_cols is None:
-            pos = self.plan.col_pos
-            stored = (
-                np.arange(g.n_vox) if pos is None else pos[: g.n_vox]
-            )
-            rank = np.empty(g.n_vox, np.int64)
-            rank[self.plan.col_perm] = stored
-            self._rank_cols = rank
+            self._rank_cols = _inverse_rows(
+                self.plan.geo.n_vox, self.plan.col_perm, self.plan.col_pos)
         return np.asarray(x_curve)[self._rank_cols]
 
     def pack_sino(self, y_nat):
@@ -325,15 +428,9 @@ class Reconstructor:
         return out
 
     def unpack_sino(self, y_curve):
-        g = self.plan.geo
         if self._rank_rows is None:
-            pos = self.plan.row_pos
-            stored = (
-                np.arange(g.n_rays) if pos is None else pos[: g.n_rays]
-            )
-            rank = np.empty(g.n_rays, np.int64)
-            rank[self.plan.row_perm] = stored
-            self._rank_rows = rank
+            self._rank_rows = _inverse_rows(
+                self.plan.geo.n_rays, self.plan.row_perm, self.plan.row_pos)
         return np.asarray(y_curve)[self._rank_rows]
 
     def _upload(self, a, device=None) -> torch.Tensor:
@@ -391,6 +488,62 @@ class Reconstructor:
     def _download(self, v: Sharded) -> np.ndarray:
         """A sharded vector joined on the host, once."""
         return v.cpu().numpy()
+
+    # ------------------------------------------------------------------ #
+    # the device staging path (``self._sets``)
+    # ------------------------------------------------------------------ #
+    def _stage_tables(self, devices) -> dict:
+        """Per device: the index tables of the device staging path, int64
+        -- ``sino`` and ``vox`` (each stored row's natural row, the zero
+        row for padding) and ``unvox`` (each voxel's stored row)."""
+        plan, g = self.plan, self.plan.geo
+        host = {
+            "sino": _gather_rows(self.sino_pad, g.n_rays, plan.row_perm,
+                                 plan.row_pos),
+            "vox": _gather_rows(self.tomo_pad, g.n_vox, plan.col_perm,
+                                plan.col_pos),
+            "unvox": _inverse_rows(g.n_vox, plan.col_perm, plan.col_pos),
+        }
+        # blocking copies: the staging stream reads them with no wait on
+        # the stream they were copied on
+        return {d: {k: torch.from_numpy(t).to(d) for k, t in host.items()}
+                for d in devices}
+
+    def _set_cols(self, y: int) -> list:
+        """``(device, column slice)`` of each column set of a ``Y =
+        y``-slice vector."""
+        per = y // self.n_batch
+        return [(d, slice(g0 * per, g1 * per)) for d, g0, g1 in self._sets]
+
+    def _pack_dev(self, a, table: str) -> list:
+        """Natural-order host ``a [n, Y]`` -> one f32 tensor per column
+        set, in stored order on the set's device: each set's columns go
+        through a host buffer (a zero row below them) and are gathered
+        there by the ``table`` rows."""
+        a = _host_tensor(a)
+        n = a.shape[0]
+        out = []
+        for d, cols in self._set_cols(a.shape[1]):
+            part = a[:, cols]
+            with self._buffers.take("up", (n + 1, part.shape[1]), d) as buf:
+                buf[:n].copy_(part)
+                buf[n].zero_()
+                # a blocking copy: the buffer is free once it returns (on
+                # the CPU ``.to`` is the buffer itself, read right here)
+                out.append(_take_rows(buf.to(d), self._stage_idx[d][table]))
+        return out
+
+    def _split(self, per_set: list) -> Sharded:
+        """One tensor per column set (``[..., set columns]``) -> the
+        :class:`Sharded` of its groups' columns, one block per group."""
+        parts = []
+        for t, (_, g0, g1) in zip(per_set, self._sets):
+            per = t.shape[-1] // (g1 - g0)
+            parts += ([t] if g1 - g0 == 1 else
+                      [t[..., i * per:(i + 1) * per].contiguous()
+                       for i in range(g1 - g0)])
+        n_data = len(self.devices)
+        return Sharded(parts, [n_data] * self.n_batch, self.n_batch)
 
     # ------------------------------------------------------------------ #
     # device arrays
@@ -769,33 +922,46 @@ class Reconstructor:
     def stage_sino(self, sino_nat) -> StagedSlab:
         """Pack + normalize + upload one sinogram slab (host -> device).
 
-        Each rank's rows of its group's columns go straight to its
-        device.  The copies go through pinned host memory on a CUDA
-        stream of the reconstructor's own (so a prefetch thread's upload
-        runs beside the solve on the device's default stream); this
-        method then waits for that stream alone, so the caller's timing
-        is honest and the slab is on the device when it returns.
+        The natural-order slab goes through a pinned host buffer kept for
+        its shape and device, to each column set's device, where it is
+        gathered into stored (Hilbert) order and its per-slice abs-max
+        taken.  The maxima come to the host, which computes the
+        power-of-two scale; the device multiplies by it.  Each rank's rows
+        of its group's columns are its block.  Where a group spans
+        several devices the host packs and normalizes, and each block is
+        uploaded through pinned memory.  The copies and the device work
+        run on a CUDA stream of the reconstructor's own (so a prefetch
+        thread's staging runs beside the solve on the device's default
+        stream); this method then waits for that stream alone, so the
+        caller's timing is honest and the slab is on the device when it
+        returns.
         """
         self._concrete()
         self._check_slices(sino_nat.shape[1])
-        with obs_span("recon/stage", slices=int(sino_nat.shape[1])):
-            y = self.pack_sino(sino_nat)
-            m = np.abs(y).max(axis=0)
-            # target 1.0: keeps every CG vector (and the fp16 CG scalars)
-            # O(n * K) at most, inside half range for any practical
-            # geometry
-            scale = np.exp2(
-                np.round(np.log2(1.0 / np.maximum(m, 1e-30)))
-            ).astype(np.float32)
-            if self._stage_stream is None:
-                y_dev = self._shard(y * scale)
+        slices = int(sino_nat.shape[1])
+        with obs_span("recon/stage", slices=slices), (
+                torch.cuda.stream(self._stage_stream)
+                if self._stage_stream is not None
+                else contextlib.nullcontext()):
+            if self._sets is None:
+                y = self.pack_sino(sino_nat)
+                scale = _pow2_scale(np.abs(y).max(axis=0))
+                y_dev, scale_dev = self._shard(y * scale), None
             else:
-                with torch.cuda.stream(self._stage_stream):
-                    y_dev = self._shard(y * scale)
+                packed = self._pack_dev(sino_nat, "sino")
+                # max |y| per slice (exact, and NaN where a slice has one)
+                scale = _pow2_scale(np.concatenate([
+                    torch.linalg.vector_norm(t, float("inf"), dim=0).cpu()
+                    .numpy() for t in packed]))
+                scales = [torch.from_numpy(scale[cols]).to(d)
+                          for d, cols in self._set_cols(slices)]
+                for t, s in zip(packed, scales):
+                    t.mul_(s)
+                y_dev, scale_dev = self._split(packed), self._split(scales)
+            if self._stage_stream is not None:
                 self._stage_stream.synchronize()
-        return StagedSlab(
-            y=y_dev, scale=scale, n_slices=int(sino_nat.shape[1])
-        )
+        return StagedSlab(y=y_dev, scale=scale, n_slices=slices,
+                          scale_dev=scale_dev)
 
     def reconstruct(self, sino_nat, iters: int = 30, x0_nat=None):
         """CGNR solve; returns ``(x [n_vox, Y], resnorms [iters, Y])``.
@@ -803,6 +969,7 @@ class Reconstructor:
         Inputs are normalized per slice by a power-of-two factor so
         narrow-precision iterates stay in range; the solution scales back
         exactly.  ``sino_nat`` may be a pre-staged :class:`StagedSlab`.
+        The volume is a fresh array of the caller's.
 
         Raises :class:`~repro_torch.resil.errors.NonFiniteSolveError` when
         the solution contains NaN/Inf (a blown-up narrow-precision solve,
@@ -813,42 +980,95 @@ class Reconstructor:
             if isinstance(sino_nat, StagedSlab)
             else self.stage_sino(sino_nat)
         )
-        for t in staged.y.parts:
+        for t in staged.y.parts + (() if staged.scale_dev is None
+                                   else staged.scale_dev.parts):
             if t.device.type == "cuda":
                 # staged on the staging stream, read on this one: the
                 # caching allocator must not hand its memory out again
                 # before this stream is done with it
                 t.record_stream(torch.cuda.current_stream(t.device))
         scale, slices = staged.scale, staged.n_slices
+        on_host = staged.scale_dev is None  # staged by the host path
         with obs_span("recon/x0", slices=slices):
-            x0 = self._shard(
-                self.pack_tomo(x0_nat) * scale
-                if x0_nat is not None
-                else np.zeros((self.tomo_pad, slices), np.float32)
-            )
+            if x0_nat is None:
+                x0 = self._sharded(
+                    (self.tomo_pad, slices), lambda d, rows, cols: torch.zeros(
+                        rows.stop - rows.start, cols.stop - cols.start,
+                        dtype=torch.float32, device=d))
+            elif on_host:
+                x0 = self._shard(self.pack_tomo(x0_nat) * scale)
+            else:
+                x0 = self._split(self._pack_dev(x0_nat, "vox")) * \
+                    staged.scale_dev
         with obs_span("recon/solve", iters=iters, slices=slices) as sp:
             with torch.no_grad():
                 x, res = self._solve(staged.y, x0, iters)
             # the span ends when the devices are done
             sp.fence((x.parts, res.parts))
         self._emit_exchange(iters, slices)
-        with obs_span("recon/download", slices=slices):
-            x, res = self._download(x), self._download(res.first_ranks())
-        with obs_span("recon/unpack", slices=slices):
-            x_nat = self.unpack_tomo(x) / scale
-            # the resilience guard: a blown-up solve (or an injected
-            # nonfinite fault) surfaces as a typed error the caller can
-            # retry or escalate, never as NaNs in the volume
-            x_nat = inject.mutate(
-                "recon/solve", x_nat, ctx={"precision": self.cfg.precision}
+        if on_host:
+            with obs_span("recon/download", slices=slices):
+                x, res = self._download(x), self._download(res.first_ranks())
+            with obs_span("recon/unpack", slices=slices):
+                x_nat = self._checked(self.unpack_tomo(x) / scale, None,
+                                      slices)
+        else:
+            with obs_span("recon/unpack", slices=slices):
+                x, n_bad = self._unpack_dev(x, staged.scale_dev)
+            with obs_span("recon/download", slices=slices):
+                x_nat = self._download_vol(x, slices)
+                res = self._download(res.first_ranks())
+                x_nat = self._checked(x_nat, n_bad, slices)
+        return x_nat, res / scale
+
+    def _unpack_dev(self, x: Sharded, scale: Sharded) -> tuple:
+        """The solved volume, per column set on its device: gathered into
+        natural order and divided by the scale; and the count of its
+        non-finite values.  Reading the volume's sums is the one sync: a
+        finite sum means every value is finite, and only otherwise are
+        they counted."""
+        out, sums = [], []
+        for d, g0, g1 in self._sets:
+            parts = [_take_rows(x.group(g).parts[0],
+                                self._stage_idx[d]["unvox"])
+                     .div_(scale.group(g).parts[0]) for g in range(g0, g1)]
+            v = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+            out.append(v)
+            sums.append(v.sum())
+        if all(np.isfinite(float(s)) for s in sums):
+            return out, 0
+        return out, sum(int(v.numel() - torch.isfinite(v).sum())
+                        for v in out)
+
+    def _download_vol(self, per_set: list, slices: int) -> np.ndarray:
+        """:meth:`_unpack_dev`'s volume into one fresh host array: each
+        set's part through a pinned buffer kept for its shape and
+        device."""
+        out = np.empty((self.plan.geo.n_vox, slices), np.float32)
+        host = torch.from_numpy(out)
+        for v, (_, cols) in zip(per_set, self._set_cols(slices)):
+            with self._buffers.take("down", tuple(v.shape), v.device) as buf:
+                buf.copy_(v)
+                host[:, cols].copy_(buf)
+        return out
+
+    def _checked(self, x_nat: np.ndarray, n_bad, slices: int) -> np.ndarray:
+        """The resilience guard: a blown-up solve (or an injected
+        nonfinite fault) surfaces as a typed error the caller can retry
+        or escalate, never as NaNs in the volume.  ``n_bad`` is the
+        device's count of non-finite values (``None``: count here); a
+        volume that ``inject`` changed is counted again on the host."""
+        got = inject.mutate(
+            "recon/solve", x_nat, ctx={"precision": self.cfg.precision}
+        )
+        if n_bad is None or got is not x_nat:
+            n_bad = int(got.size - np.isfinite(got).sum())
+        if n_bad:
+            raise NonFiniteSolveError(
+                f"solve produced {n_bad} non-finite value(s) over "
+                f"{slices} slices (precision={self.cfg.precision})"
             )
-            if not np.isfinite(x_nat).all():
-                n_bad = int(x_nat.size - np.isfinite(x_nat).sum())
-                raise NonFiniteSolveError(
-                    f"solve produced {n_bad} non-finite value(s) over "
-                    f"{slices} slices (precision={self.cfg.precision})"
-                )
-            return x_nat, res / scale
+        return got
 
     def _solve(self, y: Sharded, x0: Sharded, iters: int):
         """The CG solve of every batch group on ``y`` and ``x0`` ([pad,

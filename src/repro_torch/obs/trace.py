@@ -3,7 +3,7 @@
 The port's copy of the reference's ``obs/trace.py``.  The solve's host
 paths -- ``Reconstructor.stage_sino`` (``recon/stage``) and
 ``Reconstructor.reconstruct`` (``recon/x0``, ``recon/solve``,
-``recon/download``, ``recon/unpack``) -- time themselves through
+``recon/unpack``, ``recon/download``) -- time themselves through
 :func:`span` instead of ad-hoc ``time.perf_counter()`` pairs, so one run
 produces one coherent, nestable, thread-aware timeline on one monotonic
 clock.  Design rules, as in the reference:

@@ -797,6 +797,79 @@ def test_cuda_stage_sino_uploads_on_its_own_stream(cuda):
                                   rec.pack_sino(sino) * staged.scale)
 
 
+def _host_staged_solve(rec, sino, iters, x0_nat):
+    """The solve staged by the host formulas: ``pack_sino`` /
+    ``pack_tomo`` as a scatter into zeros, the abs-max and the
+    power-of-two scale in f32, the host-packed vectors uploaded, and the
+    volume gathered back and divided by the scale on the host."""
+    plan = rec.plan
+
+    def pack(a, pad, n, perm, pos):
+        out = np.zeros((pad, a.shape[1]), np.float32)
+        out[slice(None, n) if pos is None else pos[:n]] = a[perm]
+        return out
+
+    y = pack(sino, rec.sino_pad, plan.geo.n_rays, plan.row_perm,
+             plan.row_pos)
+    m = np.abs(y).max(axis=0)
+    scale = np.exp2(np.round(np.log2(1.0 / np.maximum(m, 1e-30)))).astype(
+        np.float32)
+    x0 = (pack(x0_nat, rec.tomo_pad, plan.geo.n_vox, plan.col_perm,
+               plan.col_pos) * scale if x0_nat is not None
+          else np.zeros((rec.tomo_pad, sino.shape[1]), np.float32))
+    with torch.no_grad():
+        x, res = rec._solve(rec._shard(y * scale), rec._shard(x0), iters)
+    rank = np.empty(plan.geo.n_vox, np.int64)
+    pos = plan.col_pos
+    rank[plan.col_perm] = (np.arange(plan.geo.n_vox) if pos is None
+                           else pos[:plan.geo.n_vox])
+    return (rec._download(x)[rank] / scale,
+            rec._download(res.first_ranks()) / scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mixed", "single", "mixed-x0", "mixed-p4"])
+def test_cuda_device_staging_equals_host_formulas(cuda, case):
+    """On the card, ``reconstruct``'s volume and residuals equal the host
+    formulas' bit for bit (one rank, a warm start, four ranks of one
+    card); the host buffers are pinned, and a second call of the same
+    shape allocates none."""
+    from repro_torch.core.recon import ReconConfig, Reconstructor
+    from repro_torch.obs import metrics as tmetrics
+    from repro_torch.obs import trace as ttrace
+
+    precision = case.split("-")[0]
+    plan, sino = _small_plan()
+    if case.endswith("p4"):
+        plan, _ = _mesh_plan()
+        rec = Reconstructor(plan, ReconConfig(comm_mode="hier", fuse=2),
+                            topology=_mesh_topology(cuda))
+    else:
+        rec = Reconstructor(plan, ReconConfig(precision=precision, fuse=2))
+    x0 = None
+    if case.endswith("x0"):
+        x0 = np.random.default_rng(3).random(
+            (plan.geo.n_vox, sino.shape[1])).astype(np.float32)
+    metrics = tmetrics.Metrics()
+    old, old_tracer = tmetrics.set_metrics(metrics), ttrace.get_tracer()
+    ttrace.enable()  # the counters count while tracing
+    try:
+        got = [rec.reconstruct(sino, iters=5, x0_nat=x0) for _ in range(2)]
+    finally:
+        tmetrics.set_metrics(old)
+        ttrace.set_tracer(old_tracer)
+    want = _host_staged_solve(rec, sino, 5, x0)
+    for x, res in got:
+        np.testing.assert_array_equal(x, want[0])
+        np.testing.assert_array_equal(res, want[1])
+    ups = 2 if x0 is not None else 1  # the sinogram's buffer and x0's
+    assert metrics.get("staging_pinned_alloc_total", dir="up") == ups
+    assert metrics.get("staging_pinned_alloc_total", dir="down") == 1
+    assert metrics.get("staging_pinned_reuse_total", dir="up") == ups
+    assert metrics.get("staging_pinned_reuse_total", dir="down") == 1
+    assert all(buf.is_pinned() for buf, _ in rec._buffers._bufs.values())
+
+
 def _serve_spec(sino, **kw):
     """A job on ``_small_plan``'s geometry and partition, mixed, fuse 2."""
     from repro_torch.core.geometry import XCTGeometry

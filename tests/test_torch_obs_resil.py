@@ -273,8 +273,8 @@ def port_plan(small_system):
 
 
 # the port's spans of one reconstruct call, in order
-STAGING_SPANS = ["recon/stage", "recon/x0", "recon/solve", "recon/download",
-                 "recon/unpack"]
+STAGING_SPANS = ["recon/stage", "recon/x0", "recon/solve", "recon/unpack",
+                 "recon/download"]
 
 
 def _solve_spans(trace, rec, y):
